@@ -1,0 +1,324 @@
+"""Local (per-process) SpGEMM — the paper's §IV-D layer, in PyTorch.
+
+Three interchangeable local multiplies with one contract — (row-major
+sorted C, overflow count) — so the batch plan can pick between them:
+
+  * ``spgemm_esc`` — expand–sort–compress: every partial product is
+    materialized (O(flops) scratch), then one packed-key sort + compress.
+    Any semiring.
+  * ``spgemm_hash`` — the expansion is enumerated in reused chunks and each
+    chunk is inserted into an open-addressing table (``kernels.spgemm_hash``):
+    O(table + chunk) scratch. Any semiring.
+  * ``spgemm_kbinned`` — both operands counting-sorted into contraction
+    bins, only matching bins paired into a dense f32 block
+    (``kernels.spgemm_binned``), then sparsified. plus_times only.
+
+``merge_sparse`` is Merge-Layer / Merge-Fiber for the sparse path.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Tuple
+
+import torch
+
+from . import semiring as sr
+from . import sortkeys
+from . import sparse as sparse_mod
+from .sparse import SparseCOO
+from ..kernels import spgemm_binned as binnedkern
+from ..kernels import spgemm_hash as hashkern
+
+Tensor = torch.Tensor
+
+
+def _colptr(a_csc: SparseCOO) -> Tuple[Tensor, Tensor]:
+    """(per-column counts padded by one 0, column starts padded by one 0)
+    of a column-major sorted COO — A's CSC view."""
+    colcount = a_csc.col_counts()
+    zero = torch.zeros((1,), dtype=torch.int32, device=a_csc.device)
+    colptr = torch.cat([zero, torch.cumsum(colcount, 0, dtype=torch.int32)])
+    return torch.cat([colcount, zero]), torch.cat([colptr, zero])
+
+
+# ---------------------------------------------------------------------------
+# ESC SpGEMM: expand - sort - compress (sparse × sparse -> sparse)
+# ---------------------------------------------------------------------------
+def _expand(a_csc: SparseCOO, b: SparseCOO, flops_cap: int, semiring: sr.Semiring):
+    """Enumerate all partial products of A·B into ``flops_cap`` slots.
+
+    ``a_csc`` must be column-major sorted; ``b`` holds B's entries as
+    (row=j, col=k). For each valid B entry t the products are A's column-k
+    entries scaled by B's value, laid out contiguously in B-entry order.
+    Returns (rows, cols, vals, valid, total_flops).
+    """
+    m, _ = a_csc.shape
+    _, n = b.shape
+    dev = a_csc.device
+    ccount_pad, colptr_pad = _colptr(a_csc)
+    bm = b.valid_mask()
+    cnt = torch.where(bm, ccount_pad[b.cols.long()], torch.zeros_like(b.cols))
+    starts = torch.cumsum(cnt, 0, dtype=torch.int32) - cnt  # exclusive prefix
+    if b.cap > 0:
+        total = starts[-1] + cnt[-1]
+    else:
+        total = torch.zeros((), dtype=torch.int32, device=dev)
+
+    # B-entry index per expanded slot e: scatter t at each non-empty segment
+    # start, then running max (segments tile [starts[t], starts[t]+cnt[t]))
+    e = torch.arange(flops_cap, dtype=torch.int32, device=dev)
+    starts_clip = torch.where((cnt > 0) & (starts < flops_cap), starts,
+                              torch.full_like(starts, flops_cap)).long()
+    tvals = torch.arange(b.cap, dtype=torch.int32, device=dev)
+    buf = torch.zeros((flops_cap + 1,), dtype=torch.int32, device=dev)
+    buf.scatter_reduce_(0, starts_clip, tvals, reduce="amax")
+    t_of_e = torch.cummax(buf[:flops_cap], 0).values
+    t_of_e = torch.clamp(t_of_e, 0, max(b.cap - 1, 0)).long()
+    within = e - starts[t_of_e]
+    valid = (e < torch.clamp(total, max=flops_cap)) & (within >= 0)
+
+    bk = b.cols[t_of_e].long()  # contraction index k
+    ai = torch.clamp(colptr_pad[bk] + within, 0, a_csc.cap - 1).long()
+    out_rows = torch.where(valid, a_csc.rows[ai], torch.full_like(within, m))
+    out_cols = torch.where(valid, b.rows[t_of_e], torch.full_like(within, n))
+    vals = semiring.mul(a_csc.vals[ai], b.vals[t_of_e])
+    vals = torch.where(valid, vals, torch.full_like(vals, semiring.zero))
+    return out_rows, out_cols, vals, valid, total
+
+
+def spgemm_esc(
+    a: SparseCOO,
+    b: SparseCOO,
+    out_cap: int,
+    flops_cap: int,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+) -> Tuple[SparseCOO, Tensor]:
+    """Sparse × sparse → sparse via expand–sort–compress.
+
+    Inputs need not be sorted (paper §IV-D); only the output is row-major
+    sorted. Returns (C, overflow) where overflow > 0 means ``out_cap`` or
+    ``flops_cap`` was too small (the caller grows capacities).
+    """
+    m, k = a.shape
+    k2, n = b.shape
+    assert k == k2
+    bt = b.transpose()  # B entry (row=k, col=j) -> (row=j, col=k)
+    rows, cols, vals, valid, total = _expand(a.sort_colmajor(), bt, flops_cap, semiring)
+    flop_overflow = torch.clamp(total - flops_cap, min=0)
+    nnz_all = torch.tensor(flops_cap, dtype=torch.int32, device=a.device)
+    expanded = SparseCOO(rows, cols, vals, nnz_all, (m, n))
+    merged, overflow = _coalesce_semiring(expanded, valid, out_cap, semiring)
+    return merged, overflow + flop_overflow
+
+
+def _coalesce_semiring(x: SparseCOO, valid: Tensor, new_cap: int, semiring: sr.Semiring):
+    """Duplicate-coordinate merge under ``semiring``; ``valid`` marks live entries."""
+    m, n = x.shape
+    rows, cols, vals, nnz, overflow = sortkeys.coalesce_entries(
+        x.rows, x.cols, x.vals, valid, (m, n), new_cap, add_kind=semiring.add_kind,
+    )
+    return SparseCOO(rows, cols, vals, nnz, (m, n)), overflow
+
+
+# ---------------------------------------------------------------------------
+# Hash-accumulator SpGEMM
+# ---------------------------------------------------------------------------
+def hash_chunks(
+    a: SparseCOO,
+    b: SparseCOO,
+    chunk_cap: int,
+    num_chunks: int,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+) -> Tuple[Tensor, Iterator[Tuple[Tensor, Tensor, Tensor]]]:
+    """The expansion of A·B in ``num_chunks`` chunks of ``chunk_cap``
+    partial products: returns (total flops, iterator over chunks), a chunk
+    being (packed row-major keys i32, values, valid) — what ``spgemm_hash``
+    inserts, one chunk at a time, so only one chunk is ever resident."""
+    _, n = b.shape
+    dev = a.device
+    a_csc = a.sort_colmajor()
+    bt = b.transpose()  # entries (j, k): rows=j, cols=k
+    ccount_pad, colptr_pad = _colptr(a_csc)
+    cnt = torch.where(bt.valid_mask(), ccount_pad[bt.cols.long()], torch.zeros_like(bt.cols))
+    cum = torch.cumsum(cnt, 0, dtype=torch.int32)  # inclusive prefix
+    if bt.cap > 0:
+        total = cum[-1]
+    else:
+        total = torch.zeros((), dtype=torch.int32, device=dev)
+    offs = torch.arange(chunk_cap, dtype=torch.int32, device=dev)
+
+    def chunks():
+        for c in range(num_chunks):
+            # expansion slots [c·chunk_cap, (c+1)·chunk_cap): the B entry of
+            # slot e is the first t with cum[t] > e
+            e = c * chunk_cap + offs
+            t = torch.clamp(torch.searchsorted(cum, e, right=True), 0, max(bt.cap - 1, 0))
+            within = e - (cum[t] - cnt[t])
+            ai = torch.clamp(colptr_pad[bt.cols[t].long()] + within, 0, a_csc.cap - 1).long()
+            vals = semiring.mul(a_csc.vals[ai], bt.vals[t])
+            # B entry (k, j) -> output col j
+            key = sortkeys.pack_rowmajor(a_csc.rows[ai], bt.rows[t], n)
+            yield key, vals, e < total
+
+    return total, chunks()
+
+
+def spgemm_hash(
+    a: SparseCOO,
+    b: SparseCOO,
+    out_cap: int,
+    table_cap: int,
+    chunk_cap: int,
+    num_chunks: int,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+    max_probes: int = 32,
+) -> Tuple[SparseCOO, Tensor]:
+    """Sparse × sparse → sparse via a hash accumulator — O(output) scratch.
+
+    The expansion is enumerated in ``num_chunks`` reused chunks of
+    ``chunk_cap`` partial products (``hash_chunks``); each chunk is one
+    ``hash_insert`` (one kernel launch on the card) into an open-addressing
+    table of ``table_cap`` slots, semiring-accumulating on probe hits.
+    Resident scratch is O(table_cap + chunk_cap) instead of O(flops).
+
+    Output contract matches ``spgemm_esc``: (row-major-sorted C, overflow)
+    where overflow counts dropped inserts, enumeration beyond
+    ``num_chunks·chunk_cap`` flops, and ``out_cap`` violations.
+    """
+    m, k = a.shape
+    k2, n = b.shape
+    assert k == k2
+    assert table_cap >= 8 and table_cap & (table_cap - 1) == 0, table_cap
+    assert sortkeys.fits_i32(m, n), (m, n)
+    dev = a.device
+    add_kind = semiring.add_kind
+    table_key = torch.full((table_cap,), hashkern.EMPTY, dtype=torch.int32, device=dev)
+    table_val = torch.full((table_cap,), hashkern.table_init_val(add_kind),
+                           dtype=a.vals.dtype, device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    total, chunks = hash_chunks(a, b, chunk_cap, num_chunks, semiring)
+    for key, vals, valid in chunks:
+        hashkern.hash_insert(
+            table_key, table_val, key, vals, valid, dropped,
+            add_kind=add_kind, max_probes=max_probes,
+        )
+    flop_overflow = torch.clamp(total - num_chunks * chunk_cap, min=0)
+
+    # table → sorted COO: EMPTY (INT32_MAX) sorts after every real key and
+    # the row-major sentinel, so one sort + sentinel compress finalizes
+    skey, perm = sortkeys.stable_sort(table_key)
+    sent = sortkeys.key_space(m, n) - 1
+    okey, ovals, nnz, ovf_out = sortkeys.compress_sorted_keys(
+        skey, table_val[perm], sent, out_cap, add_kind=add_kind
+    )
+    orows, ocols = sortkeys.unpack_rowmajor(okey, n)
+    return SparseCOO(orows, ocols, ovals, nnz, (m, n)), ovf_out + flop_overflow + dropped
+
+
+# ---------------------------------------------------------------------------
+# k-binned paired SpGEMM
+# ---------------------------------------------------------------------------
+def spgemm_kbinned(
+    a: SparseCOO,
+    b: SparseCOO,
+    out_cap: int,
+    num_bins: int,
+    bin_cap_a: int,
+    bin_cap_b: int,
+    bin_of_k: Tensor = None,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+) -> Tuple[SparseCOO, Tensor]:
+    """Sparse × sparse → sparse via the k-binned paired kernel.
+
+    Both operands are counting-sorted into ``num_bins`` contraction ranges
+    (``bin_of_k``, a monotone map from ``symbolic.plan_k_bins``) and only
+    matching bins are paired into a dense (m, n) f32 block, which is then
+    sparsified to ``out_cap`` entries, row-major sorted — the same output
+    contract as ``spgemm_esc``. Requires plus_times. Overflow counts both
+    bin-capacity and ``out_cap`` violations.
+    """
+    assert semiring.name == "plus_times", (
+        f"k-binned paired multiply requires plus_times, got {semiring.name}"
+    )
+    m, k = a.shape
+    k2, n = b.shape
+    assert k == k2, (a.shape, b.shape)
+    # gathered operands declare every slot live and rely on sentinel-k
+    # padding — mask on the contraction index, not just nnz
+    a_valid = a.valid_mask() & (a.cols < k)
+    b_valid = b.valid_mask() & (b.rows < k)
+    av = torch.where(a_valid, a.vals, torch.zeros_like(a.vals))
+    bv = torch.where(b_valid, b.vals, torch.zeros_like(b.vals))
+    dense, ovf_bin = binnedkern.spgemm_binned_dense(
+        a.rows, a.cols, av, a_valid, b.rows, b.cols, bv, b_valid,
+        m, n, k, num_bins, bin_cap_a, bin_cap_b, bin_map=bin_of_k,
+    )
+    # the pairing kernel accumulates f32; restore the input dtype so the
+    # binned and ESC paths stay interchangeable behind the plan switch
+    c, ovf_out = sparse_mod.from_dense_overflow(dense.to(a.dtype), out_cap)
+    return c, ovf_bin + ovf_out
+
+
+# ---------------------------------------------------------------------------
+# merge
+# ---------------------------------------------------------------------------
+def merge_sparse(
+    parts,
+    out_cap: int,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+    assume_sorted: bool = False,
+):
+    """Merge-Layer / Merge-Fiber for the sparse path: reduce duplicate coords.
+
+      * ``assume_sorted=False`` — inputs unsorted; one packed-key coalesce
+        over the concatenated entry lists.
+      * ``assume_sorted=True`` — every part is already row-major sorted (true
+        for the local multiplies' outputs and their column-split pieces), so
+        the parts are *merged*, not re-sorted: a k-way merge-path over packed
+        keys, then a linear compress.
+
+    Returns (merged, overflow).
+    """
+    shape = parts[0].shape
+    for x in parts:
+        assert x.shape == shape
+    m, n = shape
+    if assume_sorted and sortkeys.fits_i32(m, n):
+        # padding carries (m, n) sentinels == max key, so each part's packed
+        # key array is ascending end-to-end and merges keep sentinels last
+        keys = [sortkeys.pack_rowmajor(x.rows, x.cols, n) for x in parts]
+        mkey, mvals = sortkeys.merge_sorted_runs(keys, [x.vals for x in parts])
+        sent = sortkeys.key_space(m, n) - 1
+        okey, ovals, nnz, overflow = sortkeys.compress_sorted_keys(
+            mkey, mvals, sent, out_cap, add_kind=semiring.add_kind
+        )
+        orows, ocols = sortkeys.unpack_rowmajor(okey, n)
+        return SparseCOO(orows, ocols, ovals, nnz, (m, n)), overflow
+    rows = torch.cat([x.rows for x in parts])
+    cols = torch.cat([x.cols for x in parts])
+    vals = torch.cat([x.vals for x in parts])
+    valid = torch.cat([x.valid_mask() for x in parts])
+    nnz_all = torch.tensor(rows.shape[0], dtype=torch.int32, device=rows.device)
+    stacked = SparseCOO(rows, cols, vals, nnz_all, shape)
+    return _coalesce_semiring(stacked, valid, out_cap, semiring)
+
+
+# ---------------------------------------------------------------------------
+# Symbolic local multiply (Alg. 3 LocalSymbolic)
+# ---------------------------------------------------------------------------
+def local_symbolic_flops(a: SparseCOO, b: SparseCOO) -> Tensor:
+    """Number of partial products of A·B = Σ_t nnz(A(:, B.row_t)) — the
+    per-process unmerged D bound Alg. 3 accumulates per stage."""
+    ccount_pad, _ = _colptr(a)
+    contrib = torch.where(b.valid_mask(), ccount_pad[b.rows.long()], torch.zeros_like(b.rows))
+    return contrib.sum()
+
+
+def nnz_per_col_upper(a_colcounts: Tensor, b: SparseCOO) -> Tensor:
+    """Per-output-column flops upper bound: ub[j] = Σ_{k in B(:,j)} nnz(A(:,k))."""
+    _, n = b.shape
+    cc = torch.cat([a_colcounts, torch.zeros((1,), dtype=a_colcounts.dtype,
+                                             device=a_colcounts.device)])
+    contrib = torch.where(b.valid_mask(), cc[b.rows.long()], torch.zeros_like(b.rows))
+    out = torch.zeros((n + 1,), dtype=contrib.dtype, device=contrib.device)
+    out.index_add_(0, b.cols.long(), contrib)
+    return out[:n]
