@@ -8,6 +8,7 @@ Laid out module for module like the JAX package ``repro``:
   kernels/   the hand-written Hopper kernels (CUDA C++ in ``csrc/``), each
              beside its plain PyTorch version, and their nvcc/ctypes build
   runtime/   the pipelined dispatch window
+  sparse_apps/  applications on the batched multiply: Markov clustering
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU. Importing the package builds nothing.

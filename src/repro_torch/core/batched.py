@@ -227,14 +227,21 @@ def plan_from_symbolic(
     when the estimated compression factor clears ``HASH_CF_THRESHOLD``, else
     binned when binning strictly cuts pairings, else ESC. ``floors``
     pow2-quantize and floor the derived capacities so iterated multiplies
-    keep one plan. Every fold of per-column counts into batches goes through
-    the block-cyclic ``Distribution``.
+    keep one plan. ``spec.reserved_bytes`` is taken off the budget first
+    (output already committed by the caller). Every fold of per-column
+    counts into batches goes through the block-cyclic ``Distribution``.
     """
     r_bytes, slack = spec.r_bytes, spec.slack
     local_path = spec.local_path
     kbin_candidates = spec.kbin_candidates
     if kbin_candidates is None and floors.kbin_caps is not None:
         kbin_candidates = (floors.kbin_caps.num_bins,)
+    if spec.reserved_bytes >= per_process_memory:
+        raise MemoryError(
+            f"reserved output bytes ({spec.reserved_bytes}) exceed per-process "
+            f"memory ({per_process_memory})"
+        )
+    per_process_memory = per_process_memory - spec.reserved_bytes
     dist = BLOCK_CYCLIC
     percol = counts.percol  # (pr, pc, l, tn_b)
     pr, pc, l, tn_b = percol.shape
@@ -390,6 +397,12 @@ class RunReport:
     ladder_blocked: int = 0  # cap doublings refused by the memory ceiling
     degraded_batches: Tuple[Tuple[int, int], ...] = ()  # (batch, split)
 
+    def merged(self, other: "RunReport") -> "RunReport":
+        """Field-wise accumulation (counts add, degradations concatenate)."""
+        return RunReport(*(
+            x + y for x, y in zip(dataclasses.astuple(self), dataclasses.astuple(other))
+        ))
+
 
 def plan_footprint(
     caps: BatchCaps,
@@ -399,16 +412,18 @@ def plan_footprint(
     r_bytes: int,
     max_nnz_a: int,
     max_nnz_b: int,
+    reserved_bytes: int = 0,
 ) -> int:
     """Per-process bytes a capacity plan commits to, aligned with Alg. 3's
     budget: ``r`` bytes per stored entry of inputs + selection + the batch's
     stored intermediate (ESC/binned expansion scratch, or the hash table +
-    merged survivors). The retry ladder prices cap doublings against it."""
+    merged survivors), plus the caller's reserved output bytes. The retry
+    ladder prices cap doublings against it."""
     if hash_caps is not None:
         inter = hash_caps.table_cap * HASH_SLOT_BYTES + r_bytes * caps.d_cap
     else:
         inter = r_bytes * caps.flops_cap
-    return r_bytes * (max_nnz_a + max_nnz_b + sel_cap) + inter
+    return r_bytes * (max_nnz_a + max_nnz_b + sel_cap) + inter + reserved_bytes
 
 
 class _LadderBlocked(Exception):
@@ -444,6 +459,18 @@ class BatchedResult:
     hash_caps: Optional[HashCaps] = None  # the HashCaps used (hash)
     report: RunReport = dataclasses.field(default_factory=RunReport)
 
+    def floors(self) -> PlanFloors:
+        """The capacities this run actually used, as the ``PlanFloors`` an
+        iterated caller merges into its next plan (pow2 quantization on)."""
+        return PlanFloors(
+            caps=self.plan.caps,
+            sel_cap=self.plan.sel_cap,
+            num_batches=self.plan.num_batches,
+            kbin_caps=self.binned_caps,
+            hash_caps=self.hash_caps,
+            caps_pow2=True,
+        )
+
 
 def batched_summa3d(
     a: DistSparse,
@@ -451,6 +478,7 @@ def batched_summa3d(
     grid: Grid,
     per_process_memory: int,
     consumer: Callable[[int, object, np.ndarray], object],
+    path: str = "sparse",
     semiring: sr.Semiring = sr.PLUS_TIMES,
     spec: Optional[PlanSpec] = None,
     floors: Optional[PlanFloors] = None,
@@ -459,20 +487,23 @@ def batched_summa3d(
 ) -> BatchedResult:
     """Multiply A·B in batches; the consumer sees each batch, then it is freed.
 
-    ``consumer(batch_idx, c_batch, global_col_map)`` receives a C-kind
-    ``DistSparse`` per batch (or ``postprocess``'s output for it) in batch
-    order. ``spec`` (`PlanSpec`) holds the planning policy, ``floors``
-    (`PlanFloors`) the cross-run capacity pins, ``exec_spec`` (`ExecSpec`)
+    ``consumer(batch_idx, c_batch, global_col_map)`` receives per batch,
+    in batch order, a C-kind ``DistSparse`` (``path="sparse"``) or the
+    stacked dense (pr, pc, l, tm, wb/l) f32 tiles (``path="dense"``: the
+    densify + SpMM local multiply, sum monoids only) — or ``postprocess``'s
+    output for it. ``spec`` (`PlanSpec`) holds the planning policy,
+    ``floors`` (`PlanFloors`) the cross-run capacity pins, ``exec_spec`` (`ExecSpec`)
     the schedule: ``pipelined=True`` enqueues up to ``lookahead`` batches
     ahead of the one whose overflow flags it reads; ``pipelined=False`` is
     the serial schedule, one host sync per batch. Both give identical
     batches.
 
-    ``spec.local_path`` is the plan-driven 3-way dispatch: "auto" lets the
-    plan pick (hash when the compression factor clears
-    ``HASH_CF_THRESHOLD``, else binned when binning strictly cuts pairings
-    and the semiring is plus_times, else ESC); "hash"/"binned"/"esc" force a
-    path. One decision is made per plan, never per batch.
+    ``spec.local_path`` is the sparse path's plan-driven 3-way dispatch
+    (the dense path plans the ESC budget): "auto" lets the plan pick (hash
+    when the compression factor clears ``HASH_CF_THRESHOLD``, else binned
+    when binning strictly cuts pairings and the semiring is plus_times,
+    else ESC); "hash"/"binned"/"esc" force a path. One decision is made per
+    plan, never per batch.
 
     The retry ladder is bounded by the memory ceiling
     ``max(per_process_memory, footprint(planned caps))``: a batch whose next
@@ -486,12 +517,18 @@ def batched_summa3d(
     local_path = spec.local_path
     max_retries = ex.max_retries
     assert local_path in ("auto", "esc", "binned", "hash"), local_path
-    plan = plan_batches(a, b, grid, per_process_memory, spec=spec, floors=floors)
+    assert path in ("sparse", "dense"), path
+    dense = path == "dense"
+    plan = plan_batches(
+        a, b, grid, per_process_memory,
+        spec=spec.replace(local_path="esc") if dense and local_path == "auto" else spec,
+        floors=floors,
+    )
     nb = plan.num_batches
     n_cols = b.shape[1]
 
-    use_hash = plan.local_path == "hash"
-    if use_hash or local_path == "esc":
+    use_hash = not dense and plan.local_path == "hash"
+    if use_hash or local_path == "esc" or dense:
         use_binned = False
     elif local_path == "binned":
         use_binned = True
@@ -531,7 +568,7 @@ def batched_summa3d(
     def _footprint(caps_: BatchCaps, sel_cap_: int, hc_) -> int:
         return plan_footprint(
             caps_, sel_cap_, hc_, r_bytes=r_bytes, max_nnz_a=max_nnz_a,
-            max_nnz_b=max_nnz_b,
+            max_nnz_b=max_nnz_b, reserved_bytes=spec.reserved_bytes,
         )
 
     # a plan may exceed the strict budget (slack makes that routine at tight
@@ -543,7 +580,7 @@ def batched_summa3d(
         """Enqueue one fused batch step; nothing waits for the device here."""
         return summa3d_fused_step(
             a, b, bi, bok, grid=grid, num_batches=num_batches, sel_cap=sel_cap_,
-            caps=caps_, semiring=semiring, kbin=kb_, hashc=hc_,
+            caps=caps_, semiring=semiring, path=path, kbin=kb_, hashc=hc_,
         )
 
     # capacities actually used, including retry growth — reported on the
@@ -656,6 +693,8 @@ def batched_summa3d(
                 continue
             rep["replans"] += 1
             rep["degraded"].append((bi, d_eff))
+            if dense:
+                return torch.cat(parts, dim=-1)
             return _merge_split_batches(tuple(parts), grid)
 
     def run_batch_guarded(bi: int):

@@ -9,6 +9,10 @@
   * ``triplets`` — the live (rows, cols, vals) of a port ``SparseCOO``.
   * ``batch_to_global`` — one C batch of the driver in global coordinates,
     on the batch's device.
+  * ``iterate_from_reference`` — an MCL iterate of the JAX package (its
+    ``MCLLoopState``: the A/B operands, iteration, chaos, plan floors and
+    pinned local path) as the fields of the port's ``MCLLoopState``, so
+    both loops can go on from the same iterate.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 
 from .distsparse import DistSparse
 from .sparse import SparseCOO
+from .specs import PlanFloors
 
 Tensor = torch.Tensor
 
@@ -69,3 +74,18 @@ def batch_to_global(c: DistSparse, col_map: np.ndarray) -> Tuple[Tensor, Tensor,
     rows = i * tm + c.rows[i, j, k, s].long()
     cols = cmap[j, k, c.cols[i, j, k, s].long()]
     return rows, cols, c.vals[i, j, k, s]
+
+
+def iterate_from_reference(state, device="cuda") -> dict:
+    """Fields of the port's ``sparse_apps.mcl.MCLLoopState`` holding the
+    reference state's iterate: ``A``/``B`` (padded tiles unchanged), ``it``,
+    ``chaos``, ``floors`` (through ``PlanFloors.to_meta``) and ``lp_arg``.
+    The history and the run report start empty."""
+    return {
+        "A": from_reference(state.A, device),
+        "B": from_reference(state.B, device),
+        "it": int(state.it),
+        "chaos": float(state.chaos),
+        "floors": PlanFloors.from_meta(state.floors.to_meta()),
+        "lp_arg": state.lp_arg,
+    }

@@ -12,7 +12,8 @@ global↔local maps implement the paper's three distributions:
 
 A tile (i,s,k) covers global columns s·w + k·(w/l) + [0,w/l), and B tile
 (s,j,k) covers the same global rows — so per-layer 2D SUMMA contracts
-stage-s tiles directly.
+stage-s tiles directly. ``local_col_reduce``/``dist_col_reduce`` reduce
+per global column over the grid axes that split it (MCL's normalization).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .grid import Grid
+from . import semiring as sr
+from .grid import LAYER_AX, ROW_AX, Grid
 from .sparse import SparseCOO, empty, from_numpy_coo
 
 Tensor = torch.Tensor
@@ -186,3 +188,62 @@ def gather_to_global(d: DistSparse) -> SparseCOO:
     return from_numpy_coo(
         rows, np.concatenate(cols_l), np.concatenate(vals_l), (m, n), device=d.device
     )
+
+
+# ---------------------------------------------------------------------------
+# Distributed column reductions (device-resident MCL building blocks)
+# ---------------------------------------------------------------------------
+def col_reduce_axes(kind: str) -> Tuple[str, ...]:
+    """Grid axes a per-LOCAL-column reduction must be combined over so every
+    process reads the reduction of the full GLOBAL column it holds a piece of.
+
+    A/C-kind: a global column is owned by one (grid column, layer) pair and
+    split across the pr row blocks → reduce over the row axis. B-kind: a
+    global column spans the whole pr×l fiber plane of its grid column.
+    """
+    if kind in ("A", "C"):
+        return (ROW_AX,)
+    if kind == "B":
+        return (ROW_AX, LAYER_AX)
+    raise ValueError(kind)
+
+
+def local_col_reduce(
+    vals: Tensor, cols: Tensor, valid: Tensor, tn: int, op: str = "sum",
+    axes: Tuple[str, ...] = (ROW_AX,), *, grid: Grid,
+) -> Tensor:
+    """Per-column reduction of one tile's entries: reduce ``vals`` by local
+    column (padding goes to a discard segment ``tn``), then combine over
+    ``axes`` of ``grid`` (``psum`` for sum, ``pmax`` for max). Returns
+    f32[tn]. ``op="max"`` treats empty columns as 0 (MCL values are
+    nonnegative)."""
+    if op not in ("sum", "max"):
+        raise ValueError(op)
+    segids = torch.where(valid, cols, torch.full_like(cols, tn))
+    v = torch.where(valid, vals, torch.zeros_like(vals))
+    out = sr.scatter_reduce(v, segids, tn + 1, op)[:tn]
+    if op == "max":
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    combine = grid.psum if op == "sum" else grid.pmax
+    for ax in axes:
+        out = combine(out, ax)
+    return out
+
+
+def dist_col_reduce(d: DistSparse, grid: Grid, op: str = "sum") -> Tensor:
+    """Per-GLOBAL-column reduction of a ``DistSparse`` on the grid: a
+    (pr, pc, l, tn) stack whose entry [i, j, k, c] is the sum or max over
+    the global column that local column c of tile (i, j, k) belongs to.
+    No host transfer."""
+    _, tn = d.tile_shape
+    t = d.local(*grid.coords)
+    out = local_col_reduce(
+        t.vals.float(), t.cols, t.valid_mask(), tn, op, col_reduce_axes(d.kind),
+        grid=grid,
+    )
+    return out.reshape(grid.pr, grid.pc, grid.l, tn)
+
+
+def dist_col_sums(d: DistSparse, grid: Grid) -> Tensor:
+    """Distributed column sums — see ``dist_col_reduce``."""
+    return dist_col_reduce(d, grid, op="sum")

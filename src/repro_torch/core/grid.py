@@ -69,6 +69,22 @@ class Grid:
         self._single(axis)
         return x
 
+    def pmax(self, x: Tensor, axis: str) -> Tensor:
+        self._single(axis)
+        return x
+
+    def psum_scatter(self, x: Tensor, axis: str, dim: int) -> Tensor:
+        """Sum ``x`` over ``axis`` and keep this process's 1/size slice of
+        dimension ``dim`` (a tiled reduce-scatter)."""
+        self._single(axis)
+        return x
+
+    def psum_all(self, x: Tensor) -> Tensor:
+        """Sum of ``x`` over the whole grid."""
+        for ax in self.axis_names:
+            self._single(ax)
+        return x
+
     def pmax_all(self, x: Tensor) -> Tensor:
         """Maximum of ``x`` over the whole grid."""
         for ax in self.axis_names:

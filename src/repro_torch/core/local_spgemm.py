@@ -13,7 +13,8 @@ sorted C, overflow count) — so the batch plan can pick between them:
     bins, only matching bins paired into a dense f32 block
     (``kernels.spgemm_binned``), then sparsified. plus_times only.
 
-``merge_sparse`` is Merge-Layer / Merge-Fiber for the sparse path.
+``merge_sparse`` is Merge-Layer / Merge-Fiber for the sparse path;
+``spmm`` (sparse × dense → dense) is the dense path's local multiply.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from . import sparse as sparse_mod
 from .sparse import SparseCOO
 from ..kernels import spgemm_binned as binnedkern
 from ..kernels import spgemm_hash as hashkern
+from ..kernels import spmm as spmmkern
 
 Tensor = torch.Tensor
 
@@ -38,6 +40,37 @@ def _colptr(a_csc: SparseCOO) -> Tuple[Tensor, Tensor]:
     zero = torch.zeros((1,), dtype=torch.int32, device=a_csc.device)
     colptr = torch.cat([zero, torch.cumsum(colcount, 0, dtype=torch.int32)])
     return torch.cat([colcount, zero]), torch.cat([colptr, zero])
+
+
+# ---------------------------------------------------------------------------
+# SpMM: sparse A (m×k) times dense B (k×n) -> dense (m×n)
+# ---------------------------------------------------------------------------
+def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -> Tensor:
+    """Sparse A times dense B.
+
+    On the card this is the SpMM kernel (``kernels.spmm``), which sums:
+    any other semiring raises there. CPU tensors take the semiring-generic
+    plain version: gather B's rows by A's column index, multiply, and
+    segment-reduce by A's row.
+    """
+    m, k = a.shape
+    assert b_dense.shape[0] == k, (a.shape, tuple(b_dense.shape))
+    valid = a.valid_mask()
+    if b_dense.is_cuda:
+        if semiring.name != "plus_times":
+            raise ValueError(f"the SpMM kernel computes plus_times, got {semiring.name}")
+        rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
+        vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
+        return spmmkern.spmm(rows, a.cols, vals, b_dense, m)
+    n = b_dense.shape[1]
+    # pad B with a zero row for sentinel column indices
+    b_pad = torch.cat([b_dense, torch.zeros((1, n), dtype=b_dense.dtype)], 0)
+    prods = semiring.mul(a.vals[:, None], b_pad[torch.clamp(a.cols, 0, k).long()])
+    prods = torch.where(valid[:, None], prods, torch.full_like(prods, semiring.zero))
+    out = sr.scatter_reduce(prods, torch.clamp(a.rows, 0, m), m + 1, semiring.add_kind)[:m]
+    if semiring.add_kind != "sum":
+        out = torch.where(torch.isfinite(out), out, torch.full_like(out, semiring.zero))
+    return out
 
 
 # ---------------------------------------------------------------------------

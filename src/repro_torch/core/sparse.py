@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from . import sortkeys
+from ..kernels import densify as densifykern
 
 Tensor = torch.Tensor
 
@@ -58,6 +59,12 @@ class SparseCOO:
 
     def valid_mask(self) -> Tensor:
         return torch.arange(self.cap, device=self.device) < self.nnz
+
+    def to_dense(self) -> Tensor:
+        """Dense (m, n) matrix, duplicates summed, padding skipped — the
+        densify kernel on the card (``kernels.densify``)."""
+        m, n = self.shape
+        return densifykern.densify(self.rows, self.cols, self.vals, m, n)
 
     def transpose(self) -> "SparseCOO":
         m, n = self.shape
@@ -263,6 +270,23 @@ def from_numpy_coo(
         torch.from_numpy(pv).to(device),
         torch.tensor(nnz, dtype=torch.int32, device=device), (m, n),
     )
+
+
+def concat(mats, new_cap: int) -> Tuple[SparseCOO, Tensor]:
+    """Stack the entry lists of same-shape matrices (no dedup), valid entries
+    compacted to the front. Returns (matrix, overflow count)."""
+    shape = mats[0].shape
+    for x in mats:
+        assert x.shape == shape
+    rows = torch.cat([x.rows for x in mats])
+    stacked = SparseCOO(
+        rows,
+        torch.cat([x.cols for x in mats]),
+        torch.cat([x.vals for x in mats]),
+        torch.tensor(rows.shape[0], dtype=torch.int32, device=rows.device),
+        shape,
+    )
+    return stacked.compact(torch.cat([x.valid_mask() for x in mats]), new_cap)
 
 
 def hstack_remap(mats, widths, new_cap: int):

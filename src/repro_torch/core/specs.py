@@ -1,16 +1,15 @@
 """Frozen planning/execution specs — the knob surface of the batched driver.
 
   * ``PlanSpec``   — WHAT to plan: local path, slack, bytes per entry,
-    forced batch count, k-bin candidates. Two calls with the same spec and operands give the same
-    ``BatchPlan``.
+    reserved output bytes, forced batch count, k-bin candidates. Two calls
+    with the same spec and operands give the same ``BatchPlan``.
   * ``PlanFloors`` — capacity floors carried ACROSS plans, with a monotonic
     ``merged()`` (elementwise max), so iterated callers keep one capacity
     plan as nnz drifts. JSON round-trips via ``to_meta``/``from_meta``.
   * ``ExecSpec``   — HOW to run: pipelined schedule, lookahead depth, retry
     budget.
 
-Masked plans, reserved output bytes and placement permutations are not
-ported yet.
+Masked plans and placement permutations are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,6 +29,9 @@ class PlanSpec:
     local_path: str = "auto"  # "auto" | "esc" | "binned" | "hash"
     slack: float = 1.3
     r_bytes: int = 12
+    # per-process bytes already committed to the consumed outputs (MCL's
+    # pruned batches): subtracted from the budget before batching
+    reserved_bytes: int = 0
     force_num_batches: Optional[int] = None
     kbin_candidates: Optional[Tuple[int, ...]] = None
 
@@ -64,6 +66,9 @@ class PlanFloors:
     kbin_caps: Optional[BinnedCaps] = None
     hash_caps: Optional[HashCaps] = None
     caps_pow2: bool = False
+
+    def replace(self, **kw) -> "PlanFloors":
+        return dataclasses.replace(self, **kw)
 
     def merged(self, other: "PlanFloors") -> "PlanFloors":
         """Monotonic fold: elementwise max. Mixing floors with different

@@ -13,6 +13,11 @@ One call of ``summa3d_fused_step`` computes one batch of the 3D multiply:
      partitioned, order-preserving split into all l pieces, the exchange
      along the layer axis, and a merge (not a sort) of the sorted pieces.
 
+The dense path (``path="dense"``) densifies the gathered B once, streams the
+gathered A through it (SpMM), and reduce-scatters the dense D tile along the
+layer axis. ``reassemble_operands`` turns one multiply's batched C outputs
+into the next iteration's A and B on the grid (MCL, paper §V-C).
+
 Every collective goes through the ``Grid``; on the 1×1×1 grid the port
 runs today they are the identity. Padding entries are rewritten to the contraction
 sentinel (k_tot) before gathering, so offset arithmetic cannot alias
@@ -28,8 +33,8 @@ import torch
 from . import semiring as sr
 from .distsparse import DistSparse, from_tile
 from .grid import COL_AX, LAYER_AX, ROW_AX, Grid
-from .local_spgemm import merge_sparse, spgemm_esc, spgemm_hash, spgemm_kbinned
-from .sparse import SparseCOO
+from .local_spgemm import merge_sparse, spgemm_esc, spgemm_hash, spgemm_kbinned, spmm
+from .sparse import SparseCOO, concat
 
 Tensor = torch.Tensor
 
@@ -208,26 +213,35 @@ def summa3d_fused_step(
     sel_cap: int,
     caps: BatchCaps,
     semiring: sr.Semiring = sr.PLUS_TIMES,
+    path: str = "sparse",
     kbin: BinnedCaps = None,
     hashc: HashCaps = None,
-) -> Tuple[DistSparse, Tensor]:
-    """Batch-select + SUMMA3D multiply for batch ``batch`` (Alg. 4 lines 5-6),
-    sparse path.
+):
+    """Batch-select + SUMMA3D multiply for batch ``batch`` (Alg. 4 lines 5-6).
 
     Returns ``(c_batch, ovf)`` where ``ovf`` is an i32[2] device tensor
     ``[selection_overflow, multiply_overflow]``, maximized over the grid;
     nothing here waits for the device, so the driver can enqueue batch i+1
-    before it reads batch i's flags.
+    before it reads batch i's flags. ``c_batch`` is a C-kind ``DistSparse``
+    (``path="sparse"``) or the stacked dense (pr, pc, l, tm, wb/l) f32 tiles
+    (``path="dense"``, sum monoids only; only the selection can overflow).
     """
     tn_full = b_full.tile_shape[1]
     assert tn_full % num_batches == 0, (tn_full, num_batches)
     l = grid.l
     assert (tn_full // num_batches) % l == 0
+    if path == "dense":
+        assert semiring.add_kind == "sum", "dense path requires a sum monoid"
 
     a_loc = _squeeze_tile(a, grid)
     b_loc = _squeeze_tile(b_full, grid)
     sel, ovf_sel = b_loc.select_cols_blockcyclic(batch, num_batches, l, new_cap=sel_cap)
     ovf_sel = grid.pmax_all(ovf_sel)
+    if path == "dense":
+        d_tile = spmm(_gather_A(a_loc, grid), _gather_B(sel, grid).to_dense(), semiring)
+        c_tile = grid.psum_scatter(d_tile, LAYER_AX, dim=1)  # (tm, wb/l)
+        ovf = torch.stack([ovf_sel, torch.zeros_like(ovf_sel)])
+        return c_tile.reshape(grid.pr, grid.pc, grid.l, *c_tile.shape), ovf
     c_tile, ovf_mul = _sparse_tile_body(
         a_loc, sel, grid, caps, semiring,
         kbin=kbin, bin_of_k=bin_of_k, hashc=hashc,
@@ -235,3 +249,78 @@ def summa3d_fused_step(
     ovf = torch.stack([ovf_sel, grid.pmax_all(ovf_mul).to(torch.int32)])
     c = from_tile(c_tile, (a.shape[0], b_full.shape[1] // num_batches), grid, "C")
     return c, ovf
+
+
+# ---------------------------------------------------------------------------
+# On-grid operand reassembly (device-resident iteration, paper §V-C)
+# ---------------------------------------------------------------------------
+def reassemble_operands(
+    c_batches, grid: Grid, cap_a: int, cap_b: int
+) -> Tuple[DistSparse, DistSparse, Tensor]:
+    """Turn the batched C outputs of one multiply into the next iteration's
+    A-kind and B-kind operands without leaving the grid.
+
+    ``c_batches`` are the per-batch C ``DistSparse`` results of
+    ``batched_summa3d`` (kind "C", tile (tm, wb/l)), e.g. the pruned batches
+    of an MCL expansion. Batch bi's local column c of tile (i, j, k) is
+    global column j·w + (k·nb + bi)·wbl + c (``batch_column_map``), which
+    lands in row block i / column block j of both target distributions, so
+    the reassembly is fiber-local: A keeps each entry on its layer (a local
+    column remap and one concat), B needs a partitioned split on the row and
+    one ``all_to_all`` over the layer axis.
+
+    Requires the square layout MCL uses: m == n, pr == pc. Returns
+    ``(a_next, b_next, overflow)``; overflow counts entries dropped because
+    ``cap_a``/``cap_b`` were exceeded — 0 at the post-prune hard bound.
+    """
+    c_batches = tuple(c_batches)
+    nb = len(c_batches)
+    c0 = c_batches[0]
+    pr, pc, l = c0.grid_shape
+    tm, wbl = c0.tile_shape
+    m = c0.shape[0]
+    w = wbl * l * nb  # full column-block width = n/pc
+    n = w * pc
+    assert m == n and pr == pc, (
+        f"on-grid reassembly requires the square layout, got m={m} n={n} "
+        f"grid {pr}x{pc}x{l}"
+    )
+    wl = w // l  # per-layer slice width (A cols / B rows)
+    k_ax = grid.axis_index(LAYER_AX)
+    tiles = [_squeeze_tile(t, grid) for t in c_batches]
+
+    # A-kind route: layer k's batch offsets span exactly [k·wl, (k+1)·wl),
+    # so every entry stays on its layer; only its column moves to bi·wbl + c
+    a_parts = [
+        SparseCOO(t.rows, bi * wbl + t.cols, t.vals, t.nnz, (tm, wl))
+        for bi, t in enumerate(tiles)
+    ]
+    a_tile, ovf_a = concat(a_parts, cap_a)
+
+    # B-kind route: one entry list over the full local column block [0, w)
+    # with padding rewritten to explicit sentinels; the destination layer is
+    # row // wl, so split on rows by swapping the roles (split_col_blocks
+    # keys on .cols)
+    rows_l, offs_l, vals_l = [], [], []
+    for bi, t in enumerate(tiles):
+        valid = t.valid_mask()
+        rows_l.append(torch.where(valid, t.rows, torch.full_like(t.rows, tm)))
+        offs_l.append(torch.where(valid, (k_ax * nb + bi) * wbl + t.cols,
+                                  torch.full_like(t.cols, w)))
+        vals_l.append(torch.where(valid, t.vals, torch.zeros_like(t.vals)))
+    offs = torch.cat(offs_l)
+    nnz_all = torch.tensor(offs.shape[0], dtype=torch.int32, device=offs.device)
+    ent_b = SparseCOO(offs, torch.cat(rows_l), torch.cat(vals_l), nnz_all, (w, tm))
+    br, bc, bv, bn, ovf_b = ent_b.split_col_blocks(l, cap_b)
+    br = grid.all_to_all(br, LAYER_AX)
+    bc = grid.all_to_all(bc, LAYER_AX)
+    bv = grid.all_to_all(bv, LAYER_AX)
+    bn = grid.all_to_all(bn, LAYER_AX)
+    # received pieces carry (rows = column offset in the block, cols = local B row)
+    b_parts = [SparseCOO(bc[k], br[k], bv[k], bn[k], (wl, w)) for k in range(l)]
+    b_tile, ovf_b2 = concat(b_parts, cap_b)
+
+    ovf = grid.pmax_all(ovf_a + ovf_b + ovf_b2)
+    a_next = from_tile(a_tile, (m, n), grid, "A")
+    b_next = from_tile(b_tile, (m, n), grid, "B")
+    return a_next, b_next, ovf

@@ -76,3 +76,35 @@ def bin_both(inp, lib, asarray):
             bin_map=None if inp["bmap"] is None else asarray(inp["bmap"]),
         ))
     return out
+
+
+def prune_block(seed, m=96, n=40, kind="random"):
+    """A dense f32 (m, n) block for the per-column top-k bisection:
+    "random" (distinct values, some zeros), "tied" (a few values repeated
+    across the k boundary) or "uniform" (every column one value)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1.0, 1.0, (m, n)).astype(np.float32)
+    x[rng.random((m, n)) < 0.3] = 0.0
+    if kind == "tied":
+        x = np.round(x * 4) / 4
+    elif kind == "uniform":
+        x = np.broadcast_to(rng.uniform(0.1, 1.0, n).astype(np.float32), (m, n)).copy()
+        x[:, 0] = 0.0  # an all-zero column
+    return x
+
+
+def coo_entries(seed, m, n, cap, nnz, dup=True):
+    """Padded COO (rows, cols, vals) i32/i32/f32 with ``nnz`` live entries
+    and sentinel (m, n) padding with zero values up to ``cap``. With
+    ``dup`` every 7th entry repeats its predecessor's coordinate, so a few
+    cells sum two or three entries."""
+    rng = np.random.default_rng(seed)
+    rows = np.full(cap, m, np.int32)
+    cols = np.full(cap, n, np.int32)
+    vals = np.zeros(cap, np.float32)
+    rows[:nnz] = rng.integers(0, m, nnz)
+    cols[:nnz] = rng.integers(0, n, nnz)
+    vals[:nnz] = rng.uniform(0.5, 1.0, nnz)
+    if dup:
+        rows[1:nnz:7], cols[1:nnz:7] = rows[0:nnz - 1:7], cols[0:nnz - 1:7]
+    return rows, cols, vals

@@ -4,16 +4,25 @@ this file imports no JAX, so it runs on the GPU machine:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Tolerances: sums within rtol 1e-5 (atomics add in a run-dependent order),
-key sets, min/max values and drop/no-drop exact.
+Tolerances: sums within rtol 1e-5 (atomics add in a run-dependent order;
+densify's sums of duplicates within rtol 1e-6), key sets, min/max values
+and drop/no-drop exact, the column top-k bracket bit-identical.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import local_spgemm as tlocal
+from repro_torch.core import semiring as tsr
+from repro_torch.core import sparse as tsparse
+from repro_torch.kernels import col_prune as tprune
+from repro_torch.kernels import densify as tdensify
 from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import spgemm_hash as thash
-from test_torch_cases import assert_vals, bin_both, binned_inputs, random_chunks, torch_tables
+from repro_torch.kernels import spmm as tspmm
+from test_torch_cases import (
+    assert_vals, bin_both, binned_inputs, coo_entries, prune_block, random_chunks, torch_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -50,3 +59,50 @@ def test_paired_binned_cuda_matches_plain(cuda_device):
     got = tbinned.spgemm_paired_binned_cuda(*args)
     want = tbinned.spgemm_paired_binned_ref(*args)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["random", "tied", "uniform"])
+def test_col_topk_bounds_cuda_matches_plain(cuda_device, kind):
+    x = torch.as_tensor(prune_block(seed=31, m=3000, n=333, kind=kind), device=cuda_device)
+    for k in (1, 7, 64):
+        got = tprune.col_topk_bounds_cuda(x, k)
+        want = tprune.col_topk_bounds_ref(x, k)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_spmm_cuda_matches_plain(cuda_device):
+    m, k, n = 700, 900, 600  # n spans three 256-column tiles, the last ragged
+    rows, cols, vals = coo_entries(seed=41, m=m, n=k, cap=30000, nnz=25000)
+    b = np.random.default_rng(42).uniform(-1, 1, (k, n)).astype(np.float32)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals, b)]
+    got = tspmm.spmm_cuda(*args, m)
+    want = tspmm.spmm_ref(*args, m)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_densify_cuda_matches_plain(cuda_device):
+    m, n = 500, 700
+    rows, cols, vals = coo_entries(seed=43, m=m, n=n, cap=40000, nnz=35000)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals)]
+    got = tdensify.densify_cuda(*args, m, n)
+    want = tdensify.densify_ref(*args, m, n)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_local_spmm_on_the_card_sums_only(cuda_device):
+    """On the card the local SpMM is the kernel: plus_times launches it,
+    any other semiring raises instead of falling back."""
+    rows, cols, vals = coo_entries(seed=44, m=40, n=50, cap=600, nnz=500)
+    a = tsparse.SparseCOO(*(torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals)),
+                          torch.tensor(500, dtype=torch.int32, device=cuda_device), (40, 50))
+    b = torch.rand((50, 30), device=cuda_device)
+    before = tspmm.spmm_cuda.launches
+    got = tlocal.spmm(a, b, tsr.PLUS_TIMES)
+    assert tspmm.spmm_cuda.launches == before + 1
+    a_cpu = tsparse.SparseCOO(*(getattr(a, f).cpu() for f in ("rows", "cols", "vals", "nnz")),
+                              a.shape)
+    want = tlocal.spmm(a_cpu, b.cpu(), tsr.PLUS_TIMES)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="plus_times"):
+        tlocal.spmm(a, b, tsr.MIN_PLUS)
