@@ -29,17 +29,32 @@ Phases (any failed check raises, so the script exits non-zero):
      within rtol 1e-5 / atol 1e-6 (atomic f32 adds). A kernel's time is the
      device time of its wrapper per call (every kernel and memset the
      wrapper puts on the card, from torch.profiler); it raises if the
-     profiler records none. Plain and library times are CUDA-event times.
+     profiler records none. A library call's time (the yardstick) is its
+     device time, measured the same way; plain times are CUDA-event times.
      A kernel's bound counts the bytes its wrapper must move on this run's
      data (inputs read once, outputs written once) against the card's
      memory rate, or its f32 operations against the f32 peak.
-  5. The three dense-path kernels against their plain versions on batch 0
-     of the dense MCL run's second multiply (the run of 7): col_prune
+  5. The kernel API (kernels.ops), through its wrappers, on the binned
+     kernel's operands of 4 (batch 0 of the n = 2^14 default product:
+     A's tile against a 1024-column block of B), with every launch count
+     set to 0 just before and read just after: spgemm_paired, the same
+     product by spgemm_paired_binned (the run's bin plan) and by
+     spmm(densify(B)), and sort_pairs on the packed keys and values of
+     batch 0's first partial products at 2^14 pairs (the bitonic kernel),
+     12345 (padded, the bitonic kernel) and 2^14 + 8 (routed to
+     torch.sort). The paired kernel must agree with its plain version and
+     both counterparts within rtol 1e-5 / atol 1e-6; the sorted keys must
+     equal torch.sort's, the values be bit-identical to the plain network
+     on the same padding, and per-key value sums equal torch.sort +
+     gather's. Both kernels timed as in 4, beside torch.sparse.mm and
+     torch.sort + gather as yardsticks.
+  6. The three dense-path kernels against their plain versions on batch 0
+     of the dense MCL run's second multiply (the run of 8): col_prune
      bit-identical, SpMM within rtol 1e-5, densify within rtol 1e-6
      (atomic sums of duplicates), each timed as in 4, beside one PyTorch
      call that computes the same function (torch.topk, torch.sparse.mm,
      index_put_), timed only as a yardstick.
-  6. Markov clustering (sparse_apps.mcl.mcl_iterate), sparse path, n = 2^18:
+  7. Markov clustering (sparse_apps.mcl.mcl_iterate), sparse path, n = 2^18:
      a column-stochastic protein-similarity-like input (64-node clusters),
      inflation 2, threshold 1e-4, top-64 per column, 4 iterations under a
      2 GiB per-process budget. First a profile of one batch of the second
@@ -50,15 +65,15 @@ Phases (any failed check raises, so the script exits non-zero):
      move an entry across the threshold), chaos within rtol 1e-3, identical
      cluster partitions, at most 64 entries per column with column sums
      1 +- 1e-4, and under 1 KiB of host traffic per device-loop iteration.
-  7. Markov clustering, dense path (densify + SpMM + col_prune), n = 2^14,
+  8. Markov clustering, dense path (densify + SpMM + col_prune), n = 2^14,
      4 forced batches of 16384 x 4096 f32 tiles, 6 iterations, held against
-     the sparse device loop and the host loop: nnz trajectories as in 6,
+     the sparse device loop and the host loop: nnz trajectories as in 7,
      identical partitions; the col_prune, SpMM and densify kernels must
      launch.
 
-The last two lines are a JSON object with one entry per ported kernel and
-the JSON result line. Without a CUDA device, or without the repository's
-src/ beside this file, it exits non-zero and prints no result.
+The last two lines are a JSON object with one entry per ported kernel (all
+seven) and the JSON result line. Without a CUDA device, or without the
+repository's src/ beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -89,6 +104,8 @@ MCL_BUDGET = 2 << 30  # per-process bytes: iteration 2 of the n = 2^18 run plans
 # f32 device pruning vs f64 host pruning) can move an entry across the 1e-4
 # threshold: their nnz may differ by this share per iteration, never more
 NNZ_RTOL = 1e-5
+PROFILE_MARGIN_S = 0.02  # idle time around a profiled window (see device_ms)
+SORT_CALLS = 20  # bitonic sorts per profiled window: one is ~tens of microseconds
 
 
 def log(msg: str) -> None:
@@ -118,7 +135,11 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
     """Device time (ms) per wrapper call: everything torch.profiler (CUPTI)
     records on the card during ``fn()``, which makes ``calls`` calls, mean
     over ``reps`` profiled runs (``setup()`` runs before each, outside the
-    profiled window). Raises if no kernel named ``kernel`` was recorded."""
+    profiled window). The window keeps PROFILE_MARGIN_S of idle time before
+    and after ``fn()``: device events of a window of a few microseconds
+    went missing on the card, which the margin guards against (only device
+    events are summed, so it adds nothing to the time). Raises if no kernel
+    named ``kernel`` was recorded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -129,8 +150,10 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
             setup()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_MARGIN_S)
             fn()
             torch.cuda.synchronize()
+            time.sleep(PROFILE_MARGIN_S)
         dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
         if not any(kernel in ev.name for ev in dev):
             raise RuntimeError(f"profiler recorded no device time for {kernel}: "
@@ -139,6 +162,18 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
         names |= {ev.name[:100] for ev in dev}
     log(f"  profiled on the card: {sorted(names)}")
     return total_us / reps / calls / 1e3
+
+
+def library_device_ms(label: str, fn, calls: int = 1, reps: int = 5) -> float:
+    """A yardstick's device time per call, measured as a kernel's
+    (``device_ms``: every kernel and memset the call puts on the card).
+    ``fn()`` makes ``calls`` calls; a warm-up call runs first. Its
+    CUDA-event time, host gaps included, is only logged."""
+    fn()
+    dev = device_ms(fn, calls, "", reps)
+    events = cuda_ms(fn, reps) / calls
+    log(f"  {label}: {dev:.6f} ms device time, {events:.6f} ms with CUDA events")
+    return dev
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -313,6 +348,30 @@ def check_hash_kernel(a_cat, b_cat, hc):
     return (max_err,) + timing
 
 
+def library_operands(a_cat, b_cat):
+    """Batch 0's gathered A and selected B as coalesced torch sparse COO
+    tensors (for the torch.sparse.mm yardstick), and the count of matching
+    (A entry, B entry) pairs, the product's multiply-adds."""
+    import torch
+
+    m, k = a_cat.shape
+    _, n = b_cat.shape
+    a_valid = a_cat.valid_mask() & (a_cat.cols < k)
+    b_valid = b_cat.valid_mask() & (b_cat.rows < k)
+    ka = a_cat.cols[a_valid].long()
+    kbv = b_cat.rows[b_valid].long()
+    matches = int((torch.bincount(ka, minlength=k) * torch.bincount(kbv, minlength=k)).sum())
+    a_sp = torch.sparse_coo_tensor(
+        torch.stack([a_cat.rows[a_valid].long(), ka]), a_cat.vals[a_valid], (m, k),
+        check_invariants=False,
+    ).coalesce()
+    b_sp = torch.sparse_coo_tensor(
+        torch.stack([kbv, b_cat.cols[b_valid].long()]), b_cat.vals[b_valid], (k, n),
+        check_invariants=False,
+    ).coalesce()
+    return a_sp, b_sp, matches
+
+
 def check_binned_kernel(a_cat, b_cat, kb, bin_of_k):
     """Binned multiply: kernel vs plain (and torch.sparse.mm as the library
     yardstick) on batch 0's binned operands. Returns (max abs err, kernel
@@ -340,30 +399,149 @@ def check_binned_kernel(a_cat, b_cat, kb, bin_of_k):
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
         raise AssertionError(f"binned: kernel differs from plain, max abs err {err}")
-    ka = a_cat.cols[a_valid].long()
-    kbv = b_cat.rows[b_valid].long()
-    matches = int((torch.bincount(ka, minlength=k) * torch.bincount(kbv, minlength=k)).sum())
-    a_sp = torch.sparse_coo_tensor(
-        torch.stack([a_cat.rows[a_valid].long(), ka]), a_cat.vals[a_valid], (m, k),
-        check_invariants=False,
-    ).coalesce()
-    b_sp = torch.sparse_coo_tensor(
-        torch.stack([kbv, b_cat.cols[b_valid].long()]), b_cat.vals[b_valid], (k, n),
-        check_invariants=False,
-    ).coalesce()
-    torch.sparse.mm(a_sp, b_sp)  # warm-up
+    a_sp, b_sp, matches = library_operands(a_cat, b_cat)
     events = cuda_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 20)
     # the wrapper's time: C's zero fill and the kernel
     ms = device_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 1, "binned_paired_kernel", 10)
     log(f"binned: {ms:.6f} ms device time (zero fill + kernel); {events:.6f} ms "
         f"with CUDA events")
     plain = cuda_ms(lambda: Bn.spgemm_paired_binned_ref(*args), 3)
-    lib = cuda_ms(lambda: torch.sparse.mm(a_sp, b_sp), 5)
+    lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_sp, b_sp))
     # the six binned arrays read once, C written once
     nbytes = (ar.numel() + bk.numel()) * 12 + m * n * 4
     shapes = f"{kb.num_bins} bins x ({kb.bin_cap_a} A, {kb.bin_cap_b} B) -> ({m}, {n})"
     log(f"binned: {shapes}, {matches} matching pairs, max abs err {err:.3g}")
     return err, ms, plain, lib, nbytes, 2 * matches
+
+
+def ops_phase(a_cat, b_cat, kb, bin_of_k):
+    """Phase 5: the kernel API (kernels.ops) on batch 0 of the default
+    product. Runs the API once with every launch count set to 0 just before
+    (the paired multiply, its binned and SpMM-of-densify counterparts, and
+    sort_pairs at three lengths), then holds each result against its plain
+    version and its counterparts, and times the two kernels the API alone
+    reaches. Returns {name: (launches, max abs err, ms, plain ms, library
+    ms, bytes, ops)} for bitonic_sort_pairs and spgemm_paired."""
+    import torch
+
+    from repro_torch.core import local_spgemm, semiring as sr
+    from repro_torch.kernels import ops, sort_engine as So, spgemm_acc as Ac
+    from repro_torch.kernels.densify import densify_cuda
+    from repro_torch.kernels.spgemm_binned import spgemm_paired_binned_cuda
+    from repro_torch.kernels.spmm import spmm_cuda
+
+    m, k = a_cat.shape
+    _, n = b_cat.shape
+    big = So.MAX_BITONIC_ELEMS
+    lengths = (big, 12345, big + 8)  # the network; padded; routed to torch.sort
+    # the packed-key engine's input: the row-major keys of batch 0's first
+    # partial products, in expansion order (duplicate-heavy), and their values
+    total, chunks = local_spgemm.hash_chunks(a_cat, b_cat, big + 8, 1, sr.PLUS_TIMES)
+    keys, vals, valid = next(chunks)
+    if not bool(valid.all()):
+        raise AssertionError(f"ops: batch 0 has only {int(total)} partial products")
+
+    wrappers = {"bitonic_sort_pairs": So.bitonic_sort_pairs_cuda,
+                "spgemm_paired": Ac.spgemm_paired_cuda,
+                "spgemm_paired_binned": spgemm_paired_binned_cuda,
+                "spmm": spmm_cuda, "densify": densify_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c_paired = ops.spgemm_paired(a_cat, b_cat)
+    c_binned, overflow = ops.spgemm_paired_binned(
+        a_cat, b_cat, kb.num_bins, kb.bin_cap_a, kb.bin_cap_b, bin_map=bin_of_k)
+    c_spmm = ops.spmm(a_cat, ops.densify(b_cat))
+    sorted_runs = {ln: ops.sort_pairs(keys[:ln], vals[:ln]) for ln in lengths}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"ops API on batch 0: {wall * 1e3:.1f} ms wall, launches {launches}")
+    if launches["spgemm_paired"] != 1 or launches["bitonic_sort_pairs"] != 2:
+        raise AssertionError(f"ops: the paired kernel must launch once and the bitonic "
+                             f"kernel twice (2^14 and 12345 pairs): {launches}")
+
+    # the paired multiply against its plain version and its counterparts
+    av = torch.where(a_cat.valid_mask(), a_cat.vals, torch.zeros_like(a_cat.vals))
+    bv = torch.where(b_cat.valid_mask(), b_cat.vals, torch.zeros_like(b_cat.vals))
+    args = (a_cat.rows, a_cat.cols, av, b_cat.rows, b_cat.cols, bv, m, n)
+    want = Ac.spgemm_paired_ref(*args)
+    torch.cuda.synchronize()
+    err = float((c_paired - want).abs().max())
+    for label, other in (("plain", want), ("binned", c_binned), ("spmm(densify)", c_spmm)):
+        if not torch.allclose(c_paired, other, rtol=KERNEL_RTOL, atol=1e-6):
+            raise AssertionError(f"ops: spgemm_paired differs from {label}, max abs err "
+                                 f"{float((c_paired - other).abs().max())}")
+    if int(overflow) != 0:
+        raise AssertionError(f"ops: the run's bin plan overflowed ({int(overflow)})")
+    a_sp, b_sp, matches = library_operands(a_cat, b_cat)
+    lib_c = torch.sparse.mm(a_sp, b_sp).to_dense()
+    lib_err = float((c_paired - lib_c).abs().max())
+    cap_a, cap_b = a_cat.cap, b_cat.cap
+    log(f"spgemm_paired: A {cap_a} slots x B {cap_b} slots = {cap_a * cap_b} pairings, "
+        f"{matches} matching pairs, C ({m}, {n}); max abs err {err:.3g} (plain), "
+        f"{lib_err:.3g} (torch.sparse.mm)")
+    ms = device_ms(lambda: Ac.spgemm_paired_cuda(*args), 1, "paired_kernel", 10)
+    events = cuda_ms(lambda: Ac.spgemm_paired_cuda(*args), 10)
+    plain = cuda_ms(lambda: Ac.spgemm_paired_ref(*args), 2)
+    lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_sp, b_sp))
+    log(f"spgemm_paired: {ms:.6f} ms device time (zero fill + kernel); {events:.6f} ms "
+        f"with CUDA events; plain {plain:.4f} ms, torch.sparse.mm {lib:.6f} ms device time")
+    out = {"spgemm_paired": (launches["spgemm_paired"], err, ms, plain, lib,
+                             12 * (cap_a + cap_b) + 4 * m * n, 2 * matches)}
+
+    # sort_pairs: keys as torch.sort's, values bit-identical to the plain
+    # network on the same padding, per-key value sums as torch.sort + gather's
+    sort_err = 0.0
+    for ln, (sk, sv) in sorted_runs.items():
+        ref_k, perm = torch.sort(keys[:ln])
+        if not torch.equal(sk, ref_k):
+            raise AssertionError(f"ops: sort_pairs keys differ from torch.sort at {ln}")
+        uniq, inv = torch.unique(sk, return_inverse=True)
+        sums = torch.zeros(uniq.numel(), dtype=torch.float64, device=sk.device)
+        ref_sums = torch.zeros_like(sums)
+        sums.index_add_(0, inv, sv.double())
+        ref_sums.index_add_(0, inv, vals[:ln][perm].double())
+        if not torch.allclose(sums, ref_sums, rtol=1e-12, atol=0):
+            raise AssertionError(f"ops: sort_pairs per-key sums differ at {ln}")
+        if ln <= big:
+            plain_k, plain_v = So.sort_pairs(keys[:ln].cpu(), vals[:ln].cpu())  # the plain network
+            sort_err = max(sort_err, float((sv.cpu() - plain_v).abs().max()),
+                           float((sk.cpu() - plain_k).abs().max()))
+            if not torch.equal(sv.cpu().view(torch.int32), plain_v.view(torch.int32)):
+                raise AssertionError(f"ops: sort_pairs values differ from the plain network "
+                                     f"at {ln}")
+        log(f"sort_pairs {ln}: keys equal to torch.sort's, {uniq.numel()} distinct, values "
+            f"{'bit-identical to the plain network' if ln <= big else 'per-key sums equal'}")
+    k16, v16 = keys[:big].contiguous(), vals[:big].contiguous()
+
+    def sorts():
+        for _ in range(SORT_CALLS):
+            So.bitonic_sort_pairs_cuda(k16, v16)
+
+    sorts()  # warm-up
+    ms = device_ms(sorts, SORT_CALLS, "bitonic_pairs_kernel", 10)
+    events = cuda_ms(sorts, 10) / SORT_CALLS
+    plain = cuda_ms(lambda: So.bitonic_sort_pairs_ref(k16, v16), 3)
+
+    def torch_sort_gather():
+        sk, perm = torch.sort(k16)
+        return sk, v16[perm]
+
+    lib = library_device_ms("torch.sort + gather",
+                            lambda: [torch_sort_gather() for _ in range(SORT_CALLS)],
+                            SORT_CALLS, 10)
+    log(f"bitonic_sort_pairs {big}: {ms:.6f} ms device time; {events:.6f} ms per call with "
+        f"CUDA events over {SORT_CALLS} back-to-back calls; plain {plain:.4f} ms; torch.sort "
+        f"+ gather {lib:.6f} ms device time")
+    out["bitonic_sort_pairs"] = (launches["bitonic_sort_pairs"], sort_err, ms, plain, lib,
+                                 16 * big, big * (big.bit_length() - 1))
+    for name, (_, e, t, pl, lb, nb, ops_n) in out.items():
+        bound, by = bound_ms(nb, ops_n)
+        log(f"{name}: {t:.6f} ms, bound {bound:.7f} ms ({by}, {nb} B, {ops_n} ops), "
+            f"{100 * bound / t:.3f} % of bound, library {lb:.6f} ms, max abs err {e:.3g}")
+    return out
 
 
 def column_stochastic(a):
@@ -435,15 +613,17 @@ def run_mcl(fn, a, grid, cfg, label):
     (final, history, wall s, peak bytes, launches)."""
     import torch
 
-    from repro_torch.kernels import col_prune, densify, spgemm_binned, spgemm_hash, spmm
+    from repro_torch.kernels import col_prune, spgemm_binned, spgemm_hash
+    from repro_torch.kernels.densify import densify_cuda
+    from repro_torch.kernels.spmm import spmm_cuda
     from repro_torch.sparse_apps import mcl
 
     wrappers = {
         "hash_insert": spgemm_hash.hash_insert_cuda,
         "spgemm_paired_binned": spgemm_binned.spgemm_paired_binned_cuda,
         "col_topk_bounds": col_prune.col_topk_bounds_cuda,
-        "spmm": spmm.spmm_cuda,
-        "densify": densify.densify_cuda,
+        "spmm": spmm_cuda,
+        "densify": densify_cuda,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -517,7 +697,7 @@ def profile_mcl_batch(a, grid, cfg):
 
 
 def mcl_sparse_phase(grid):
-    """Phase 6: sparse MCL at n = 2^18, device loop vs host loop."""
+    """Phase 7: sparse MCL at n = 2^18, device loop vs host loop."""
     from repro_torch.core import gen
     from repro_torch.sparse_apps import mcl
 
@@ -562,7 +742,7 @@ def mcl_dense_input():
 
 
 def mcl_dense_phase(grid, a, cfg):
-    """Phase 7: dense MCL at n = 2^14 vs the sparse device loop and the host
+    """Phase 8: dense MCL at n = 2^14 vs the sparse device loop and the host
     loop; returns the launch counts of the dense run."""
     import dataclasses
 
@@ -614,12 +794,14 @@ def dense_batch0(a, grid, cfg):
 
 
 def check_dense_kernels(a_cat, b_cat, x, k):
-    """Phase 5: col_prune, SpMM and densify against their plain versions and
+    """Phase 6: col_prune, SpMM and densify against their plain versions and
     a library yardstick. Returns {name: (max abs err, ms, plain ms,
     library ms, bytes, ops)}."""
     import torch
 
-    from repro_torch.kernels import col_prune as P, densify as D, spmm as S
+    from repro_torch.kernels import col_prune as P
+    from repro_torch.kernels.densify import densify_cuda, densify_ref
+    from repro_torch.kernels.spmm import spmm_cuda, spmm_ref
 
     out = {}
     m, kk = a_cat.shape
@@ -631,7 +813,7 @@ def check_dense_kernels(a_cat, b_cat, x, k):
         raise AssertionError("col_prune: kernel bracket differs from plain")
     ms = device_ms(lambda: P.col_topk_bounds_cuda(x, k), 1, "col_topk_bounds_kernel", 5)
     plain = cuda_ms(lambda: P.col_topk_bounds_ref(x, k), 3)
-    lib = cuda_ms(lambda: torch.topk(x.abs(), k, dim=0), 5)
+    lib = library_device_ms("torch.topk", lambda: torch.topk(x.abs(), k, dim=0))
     xm, xn = x.shape
     out["col_prune"] = (0.0, ms, plain, lib, xm * xn * 4 + 8 * xn,
                         2 * P.THRESH_ITERS * xm * xn)
@@ -642,7 +824,7 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     vals = torch.where(valid, a_cat.vals, torch.zeros_like(a_cat.vals))
     bd = b_cat.to_dense()
     args = (rows, a_cat.cols, vals, bd, m)
-    got, want = S.spmm_cuda(*args), S.spmm_ref(*args)
+    got, want = spmm_cuda(*args), spmm_ref(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
@@ -653,15 +835,14 @@ def check_dense_kernels(a_cat, b_cat, x, k):
         torch.stack([rows[live].long(), a_cat.cols[live].long()]), vals[live], (m, kk),
         check_invariants=False,
     ).coalesce().to_sparse_csr()
-    torch.sparse.mm(a_csr, bd)  # warm-up
-    ms = device_ms(lambda: S.spmm_cuda(*args), 1, "spmm_rows_kernel", 5)
-    plain = cuda_ms(lambda: S.spmm_ref(*args), 3)
-    lib = cuda_ms(lambda: torch.sparse.mm(a_csr, bd), 5)
+    ms = device_ms(lambda: spmm_cuda(*args), 1, "spmm_rows_kernel", 5)
+    plain = cuda_ms(lambda: spmm_ref(*args), 3)
+    lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_csr, bd))
     out["spmm"] = (err, ms, plain, lib, 12 * a_cat.cap + 4 * (kk * n + m * n), 2 * nnz_a * n)
 
     # densify: the selected B's entries into a (k, n) tile, duplicates summed
     args = (b_cat.rows, b_cat.cols, b_cat.vals, kk, n)
-    got, want = D.densify_cuda(*args), D.densify_ref(*args)
+    got, want = densify_cuda(*args), densify_ref(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     if not torch.allclose(got, want, rtol=DENSIFY_RTOL, atol=1e-7):
@@ -669,10 +850,10 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     ok = (b_cat.rows < kk) & (b_cat.cols < n)
     idx = (b_cat.rows[ok].long(), b_cat.cols[ok].long())
     bv = b_cat.vals[ok]
-    ms = device_ms(lambda: D.densify_cuda(*args), 1, "densify_kernel", 5)
-    plain = cuda_ms(lambda: D.densify_ref(*args), 3)
-    lib = cuda_ms(lambda: torch.zeros((kk, n), device=bv.device).index_put_(
-        idx, bv, accumulate=True), 5)
+    ms = device_ms(lambda: densify_cuda(*args), 1, "densify_kernel", 5)
+    plain = cuda_ms(lambda: densify_ref(*args), 3)
+    lib = library_device_ms("index_put_", lambda: torch.zeros((kk, n), device=bv.device)
+                            .index_put_(idx, bv, accumulate=True))
     out["densify"] = (err, ms, plain, lib, 12 * b_cat.cap + 4 * kk * n, b_cat.cap)
     for name, (e, t, pl, lb, nb, ops) in out.items():
         bound, by = bound_ms(nb, ops)
@@ -785,21 +966,26 @@ def main() -> int:
     log(f"binned: {b_ms:.6f} ms (plain {b_plain:.4f}, torch.sparse.mm {b_lib:.4f}), "
         f"bound {b_bound:.6f} ms ({b_by}), {100 * b_bound / b_ms:.2f} % of bound")
 
+    # 5. the kernel API on the same batch 0 operands
+    t0 = time.perf_counter()
+    api = ops_phase(a_cat, b_cat, rb.binned_caps, bin_of_k)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
+
     del a, A, B, a14, A14, B14, a_cat, b_cat, runs, rh, rb, ref_full, ref14
     torch.cuda.empty_cache()
 
-    # 5. the dense-path kernels against their plain versions
+    # 6. the dense-path kernels against their plain versions
     t0 = time.perf_counter()
     a_mcl, cfg_dense = mcl_dense_input()
     dk = check_dense_kernels(*dense_batch0(a_mcl, grid, cfg_dense), cfg_dense.max_per_col)
-    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
-    # 6-7. Markov clustering, sparse and dense
+    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
     mcl_sparse_phase(grid)
-    log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
-    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
     kernels = [
         {"name": "hash_insert", "route": "cuda",
@@ -823,6 +1009,18 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}", "launches": dense_launches[launch_key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib,
+        })
+    for name, source, replaces in (
+        ("bitonic_sort_pairs", "sort_engine.cu", "sort_engine.py:69"),
+        ("spgemm_paired", "spgemm_acc.cu", "spgemm_acc.py:67"),
+    ):
+        launched, err, ms, plain, lib, nbytes, ops = api[name]
+        bound, by = bound_ms(nbytes, ops)
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launched,
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
         })

@@ -14,7 +14,9 @@ sorted C, overflow count) — so the batch plan can pick between them:
     (``kernels.spgemm_binned``), then sparsified. plus_times only.
 
 ``merge_sparse`` is Merge-Layer / Merge-Fiber for the sparse path;
-``spmm`` (sparse × dense → dense) is the dense path's local multiply.
+``spmm`` (sparse × dense → dense) is the dense path's local multiply, and
+``spgemm_dense_acc`` (sparse × sparse → dense block) the dense-accumulator
+multiply that the kernel API's paired multiply is held against.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from . import sparse as sparse_mod
 from .sparse import SparseCOO
 from ..kernels import spgemm_binned as binnedkern
 from ..kernels import spgemm_hash as hashkern
-from ..kernels import spmm as spmmkern
+from ..kernels.spmm import spmm as spmm_entries
 
 Tensor = torch.Tensor
 
@@ -61,7 +63,7 @@ def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -
             raise ValueError(f"the SpMM kernel computes plus_times, got {semiring.name}")
         rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
         vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
-        return spmmkern.spmm(rows, a.cols, vals, b_dense, m)
+        return spmm_entries(rows, a.cols, vals, b_dense, m)
     n = b_dense.shape[1]
     # pad B with a zero row for sentinel column indices
     b_pad = torch.cat([b_dense, torch.zeros((1, n), dtype=b_dense.dtype)], 0)
@@ -71,6 +73,51 @@ def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -
     if semiring.add_kind != "sum":
         out = torch.where(torch.isfinite(out), out, torch.full_like(out, semiring.zero))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Dense-accumulator SpGEMM: sparse × sparse -> dense block
+# ---------------------------------------------------------------------------
+def spgemm_dense_acc(
+    a: SparseCOO,
+    b: SparseCOO,
+    semiring: sr.Semiring = sr.PLUS_TIMES,
+    *,
+    out_cap: int = None,
+    flops_cap: int = None,
+    return_overflow: bool = False,
+):
+    """C = A·B into a dense (m × n_b) accumulator; ``b`` is a narrow column
+    block (batching keeps n_b small).
+
+    Sum semirings densify B once (the densify kernel on the card) and stream
+    A's entries through it with ``spmm`` (the SpMM kernel on the card, which
+    computes plus_times only). min/max semirings cannot use a zero-filled
+    dense B, whose structural zeros would take part, so they run
+    ``spgemm_esc`` and reduce its sparse result onto a ``semiring.zero``
+    background. ``out_cap``/``flops_cap`` size that ESC run; the defaults
+    (m·n_b and cap_A·cap_B) cannot overflow. Callers passing tighter caps
+    set ``return_overflow=True`` (returns ``(dense, overflow)``) and check
+    it; for sum semirings overflow is always 0.
+    """
+    m, k = a.shape
+    k2, nb = b.shape
+    assert k == k2, (a.shape, b.shape)
+    if semiring.add_kind == "sum":
+        out = spmm(a, b.to_dense(), semiring)
+        zero = torch.zeros((), dtype=torch.int32, device=a.device)
+        return (out, zero) if return_overflow else out
+    out_cap = out_cap if out_cap is not None else m * nb
+    flops_cap = flops_cap if flops_cap is not None else max(a.cap * b.cap, 1)
+    c, overflow = spgemm_esc(a, b, out_cap=out_cap, flops_cap=flops_cap, semiring=semiring)
+    safe_vals = torch.where(c.valid_mask(), c.vals, torch.full_like(c.vals, semiring.zero))
+    # padding carries the sentinels (m, n_b): the extra row and column
+    dense = torch.full(((m + 1) * (nb + 1),), semiring.zero, dtype=c.vals.dtype,
+                       device=a.device)
+    dense.scatter_reduce_(0, c.rows.long() * (nb + 1) + c.cols.long(), safe_vals,
+                          reduce=sr.REDUCE_OPS[semiring.add_kind], include_self=True)
+    out = dense.reshape(m + 1, nb + 1)[:m, :nb]
+    return (out, overflow) if return_overflow else out
 
 
 # ---------------------------------------------------------------------------

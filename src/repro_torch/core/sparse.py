@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import sortkeys
-from ..kernels import densify as densifykern
+from ..kernels.densify import densify as densify_entries
 
 Tensor = torch.Tensor
 
@@ -64,7 +64,7 @@ class SparseCOO:
         """Dense (m, n) matrix, duplicates summed, padding skipped — the
         densify kernel on the card (``kernels.densify``)."""
         m, n = self.shape
-        return densifykern.densify(self.rows, self.cols, self.vals, m, n)
+        return densify_entries(self.rows, self.cols, self.vals, m, n)
 
     def transpose(self) -> "SparseCOO":
         m, n = self.shape
@@ -223,6 +223,11 @@ def empty(shape: Tuple[int, int], cap: int, dtype=torch.float32, device="cuda") 
         torch.zeros((), dtype=torch.int32, device=device),
         shape,
     )
+
+
+def from_dense(x: Tensor, cap: int) -> SparseCOO:
+    """Dense→COO in row-major order; nonzeros beyond ``cap`` are dropped."""
+    return from_dense_overflow(x, cap)[0]
 
 
 def from_dense_overflow(x: Tensor, cap: int) -> Tuple[SparseCOO, Tensor]:

@@ -1,5 +1,26 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: ``spgemm_hash`` (hash-accumulator insert), ``spgemm_binned``
-(k-binned paired multiply), ``col_prune`` (per-column top-k bisection),
-``spmm`` (sparse × dense) and ``densify`` (COO → dense tile). ``_build``
-compiles ``csrc/`` with nvcc at first use."""
+version, with public wrappers (``ops``) and the plain versions under the
+JAX package's oracle names (``ref``):
+
+  spgemm_hash    hash-accumulator insert
+  spgemm_binned  k-binned paired multiply
+  spgemm_acc     sort-free paired multiply
+  sort_engine    bitonic sort of (key, value) pairs
+  col_prune      per-column top-k bisection
+  spmm           sparse × dense
+  densify        COO → dense tile
+
+``_build`` compiles ``csrc/`` with nvcc at first launch; importing builds
+nothing. The package exports the ``ops`` wrappers by name, which hides the
+``spmm`` and ``densify`` submodules behind them: import those modules'
+functions from the modules themselves (``from repro_torch.kernels.spmm
+import spmm_cuda``).
+"""
+from . import ops, ref  # noqa: F401
+from .ops import (  # noqa: F401
+    densify,
+    sort_pairs,
+    spgemm_paired,
+    spgemm_paired_binned,
+    spmm,
+)

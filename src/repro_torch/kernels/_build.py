@@ -24,7 +24,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("spgemm_hash", "spgemm_binned", "col_prune", "spmm", "densify")
+SOURCES = (
+    "spgemm_hash", "spgemm_binned", "col_prune", "spmm", "densify", "sort_engine", "spgemm_acc",
+)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[Tuple[str, str], Callable[..., int]] = {}

@@ -13,7 +13,8 @@ The caller keeps entries ``>= hi`` and fills the remaining slots from the
   * ``col_topk_bounds_ref`` — the plain PyTorch version, the same
     ``THRESH_ITERS`` f32 steps on exact integer counts.
   * ``col_topk_bounds`` — the kernel for CUDA tensors, the plain version
-    for CPU tensors.
+    for CPU tensors; ``col_topk_threshold`` is its ``hi`` alone, and
+    ``col_topk_threshold_ref`` the exact k-th largest |value| by sorting.
 
 Every step is the same correctly rounded f32 operation in all three, so
 the brackets are bit-identical.
@@ -83,3 +84,19 @@ def col_topk_bounds(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     tensors, the plain version for CPU tensors."""
     fn = col_topk_bounds_cuda if x.is_cuda else col_topk_bounds_ref
     return fn(x, k)
+
+
+def col_topk_threshold(x: Tensor, k: int) -> Tensor:
+    """Per-column |value| threshold keeping at most k entries of a dense f32
+    (m, n) block: the bracket's ``hi``."""
+    return col_topk_bounds(x, k)[1]
+
+
+def col_topk_threshold_ref(x: Tensor, k: int) -> Tensor:
+    """Sorted oracle: the exact k-th largest |value| of each column (zeros
+    when k > m)."""
+    m, n = x.shape
+    if k > m:
+        return torch.zeros((n,), dtype=torch.float32, device=x.device)
+    desc = torch.sort(x.float().abs(), dim=0, descending=True).values
+    return desc[k - 1]

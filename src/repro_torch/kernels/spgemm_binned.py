@@ -17,6 +17,9 @@ bin are paired, so the pairing work drops from capA × capB to
     version for CPU tensors.
 
 Padding sentinels: A pads k with -1, B with -2 (never equal), values with 0.
+
+``pairing_counts`` compares the pairing work of the unbinned and the binned
+multiply from capacities alone.
 """
 from __future__ import annotations
 
@@ -178,3 +181,30 @@ def spgemm_binned_dense(
     )
     out = spgemm_paired_binned(ar_b, ak_b, av_b, bk_b, bc_b, bv_b, m, n)
     return out, ovf_a + ovf_b
+
+
+#: Entry-block size of the pairing grids that ``pairing_counts`` prices: the
+#: JAX package's paired kernels pair A and B in blocks of 256 entries.
+PAIR_BLOCK = 256
+
+
+def pairing_counts(
+    cap_a: int, cap_b: int, num_bins: int, bin_cap_a: int, bin_cap_b: int
+) -> dict:
+    """Static pairing-work comparison: unbinned capA × capB against binned
+    Σ_g capA_g × capB_g, both rounded up to whole entry blocks."""
+    a_blk = min(PAIR_BLOCK, _rup(cap_a, 8))
+    b_blk = min(PAIR_BLOCK, _rup(cap_b, 8))
+    full = _rup(cap_a, a_blk) * _rup(cap_b, b_blk)
+    a_blk_g = min(PAIR_BLOCK, _rup(bin_cap_a, 8))
+    b_blk_g = min(PAIR_BLOCK, _rup(bin_cap_b, 8))
+    binned = num_bins * _rup(bin_cap_a, a_blk_g) * _rup(bin_cap_b, b_blk_g)
+    return {
+        "pairings_unbinned": full,
+        "pairings_binned": binned,
+        "reduction": full / max(binned, 1),
+    }
+
+
+def _rup(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult

@@ -108,3 +108,35 @@ def coo_entries(seed, m, n, cap, nnz, dup=True):
     if dup:
         rows[1:nnz:7], cols[1:nnz:7] = rows[0:nnz - 1:7], cols[0:nnz - 1:7]
     return rows, cols, vals
+
+
+def dup_keys(seed, n):
+    """Duplicate-heavy int32 keys (about n/8 distinct, a few negative) and
+    f32 values, both of length ``n``: the packed-key engine's sort input."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(-3, max(2, n // 8), n).astype(np.int32)
+    vals = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    return keys, vals
+
+
+def dense_random(seed, m, n, density):
+    """A dense f32 (m, n) matrix with about ``density`` of it nonzero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    return np.where(rng.random((m, n)) < density, x, 0.0).astype(np.float32)
+
+
+def paired_entries(seed, m, k, n, cap_a, nnz_a, cap_b, nnz_b):
+    """Padded COO operands of the paired multiply, A (m×k) and B (k×n), in
+    no order: sentinel padding (A: row m, col k; B: row k, col n; values
+    0), plus a few live-valued entries whose A row or B column lies outside
+    the output (negative, or the sentinel) and must be skipped. Returns
+    ((a_rows, a_cols, a_vals), (b_rows, b_cols, b_vals))."""
+    rng = np.random.default_rng(seed)
+    a_rows, a_cols, a_vals = coo_entries(seed, m, k, cap_a, nnz_a, dup=False)
+    b_rows, b_cols, b_vals = coo_entries(seed + 1, k, n, cap_b, nnz_b, dup=False)
+    for out_idx, vals, bad in ((a_rows, a_vals, (-1, m, m + 5)), (b_cols, b_vals, (-2, n, n + 3))):
+        slots = rng.choice(min(len(out_idx), 64), size=3, replace=False)
+        out_idx[slots] = bad
+        vals[slots] = 7.0  # nonzero: only the index range drops them
+    return (a_rows, a_cols, a_vals), (b_rows, b_cols, b_vals)

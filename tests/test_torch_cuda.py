@@ -6,7 +6,8 @@ this file imports no JAX, so it runs on the GPU machine:
 
 Tolerances: sums within rtol 1e-5 (atomics add in a run-dependent order;
 densify's sums of duplicates within rtol 1e-6), key sets, min/max values
-and drop/no-drop exact, the column top-k bracket bit-identical.
+and drop/no-drop exact, the column top-k bracket and the bitonic sort's
+keys and values bit-identical.
 """
 import numpy as np
 import pytest
@@ -16,12 +17,15 @@ from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import col_prune as tprune
-from repro_torch.kernels import densify as tdensify
+from repro_torch.kernels.densify import densify_cuda, densify_ref
+from repro_torch.kernels import sort_engine as tsort
+from repro_torch.kernels import spgemm_acc as tacc
 from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import spgemm_hash as thash
-from repro_torch.kernels import spmm as tspmm
+from repro_torch.kernels.spmm import spmm_cuda, spmm_ref
 from test_torch_cases import (
-    assert_vals, bin_both, binned_inputs, coo_entries, prune_block, random_chunks, torch_tables,
+    assert_vals, bin_both, binned_inputs, coo_entries, dup_keys, paired_entries, prune_block,
+    random_chunks, torch_tables,
 )
 
 pytestmark = pytest.mark.cuda
@@ -76,8 +80,8 @@ def test_spmm_cuda_matches_plain(cuda_device):
     rows, cols, vals = coo_entries(seed=41, m=m, n=k, cap=30000, nnz=25000)
     b = np.random.default_rng(42).uniform(-1, 1, (k, n)).astype(np.float32)
     args = [torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals, b)]
-    got = tspmm.spmm_cuda(*args, m)
-    want = tspmm.spmm_ref(*args, m)
+    got = spmm_cuda(*args, m)
+    want = spmm_ref(*args, m)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
@@ -85,8 +89,8 @@ def test_densify_cuda_matches_plain(cuda_device):
     m, n = 500, 700
     rows, cols, vals = coo_entries(seed=43, m=m, n=n, cap=40000, nnz=35000)
     args = [torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals)]
-    got = tdensify.densify_cuda(*args, m, n)
-    want = tdensify.densify_ref(*args, m, n)
+    got = densify_cuda(*args, m, n)
+    want = densify_ref(*args, m, n)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
@@ -97,12 +101,60 @@ def test_local_spmm_on_the_card_sums_only(cuda_device):
     a = tsparse.SparseCOO(*(torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals)),
                           torch.tensor(500, dtype=torch.int32, device=cuda_device), (40, 50))
     b = torch.rand((50, 30), device=cuda_device)
-    before = tspmm.spmm_cuda.launches
+    before = spmm_cuda.launches
     got = tlocal.spmm(a, b, tsr.PLUS_TIMES)
-    assert tspmm.spmm_cuda.launches == before + 1
+    assert spmm_cuda.launches == before + 1
     a_cpu = tsparse.SparseCOO(*(getattr(a, f).cpu() for f in ("rows", "cols", "vals", "nnz")),
                               a.shape)
     want = tlocal.spmm(a_cpu, b.cpu(), tsr.PLUS_TIMES)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="plus_times"):
         tlocal.spmm(a, b, tsr.MIN_PLUS)
+
+
+@pytest.mark.parametrize("n", [2, 1024, 8192, 16384])
+def test_bitonic_cuda_matches_plain(cuda_device, n):
+    """8192 pairs and more need the kernel's shared-memory opt-in (64 KiB
+    and 128 KiB of the block's dynamic shared memory)."""
+    keys, vals = dup_keys(seed=n, n=n)
+    k, v = torch.as_tensor(keys, device=cuda_device), torch.as_tensor(vals, device=cuda_device)
+    before = tsort.bitonic_sort_pairs_cuda.launches
+    got_k, got_v = tsort.bitonic_sort_pairs(k, v)
+    assert tsort.bitonic_sort_pairs_cuda.launches == before + 1
+    want_k, want_v = tsort.bitonic_sort_pairs_ref(k, v)
+    assert torch.equal(got_k, want_k)
+    assert torch.equal(got_v.view(torch.int32), want_v.view(torch.int32))
+    assert torch.equal(got_k, torch.sort(k).values)
+    # an int32 payload moves as the same bits
+    iv = v.view(torch.int32)
+    assert torch.equal(tsort.bitonic_sort_pairs_cuda(k, iv)[1], want_v.view(torch.int32))
+
+
+def test_sort_pairs_cuda_pads_and_routes(cuda_device):
+    for length in (12345, tsort.MAX_BITONIC_ELEMS + 8):
+        keys, vals = dup_keys(seed=length, n=length)
+        k, v = torch.as_tensor(keys, device=cuda_device), torch.as_tensor(vals, device=cuda_device)
+        got_k, got_v = tsort.sort_pairs(k, v)
+        assert torch.equal(got_k, torch.sort(k).values)
+        uniq, inv = torch.unique(got_k, return_inverse=True)
+        sums = torch.zeros(uniq.numel(), dtype=torch.float64, device=cuda_device)
+        ref_sums = torch.zeros_like(sums)
+        sums.index_add_(0, inv, got_v.double())
+        _, perm = torch.sort(k)
+        ref_sums.index_add_(0, inv, v[perm].double())
+        torch.testing.assert_close(sums, ref_sums, rtol=0, atol=1e-5)
+
+
+def test_paired_cuda_matches_plain(cuda_device):
+    """Padding on both sides (meeting on the contraction sentinel) and
+    live-valued entries outside the output are skipped."""
+    m, k, n = 700, 900, 600
+    a, b = paired_entries(seed=61, m=m, k=k, n=n, cap_a=20000, nnz_a=18000,
+                          cap_b=5000, nnz_b=4500)
+    args = [torch.as_tensor(x, device=cuda_device) for x in (*a, *b)]
+    before = tacc.spgemm_paired_cuda.launches
+    got = tacc.spgemm_paired(*args, m, n)
+    assert tacc.spgemm_paired_cuda.launches == before + 1
+    want = tacc.spgemm_paired_ref(*args, m, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert int((want != 0).sum()) > 0

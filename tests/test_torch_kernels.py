@@ -28,19 +28,25 @@ from repro.core import sparse as jsparse
 from repro.kernels import ref as jref
 from repro.kernels import spgemm_binned as jbinned
 from repro.kernels import spgemm_hash as jhash
+from repro.kernels import col_prune as jprune
 from repro.kernels.col_prune import col_topk_bounds_pallas
 from repro.kernels.densify import densify_pallas
+from repro.kernels.sort_engine import bitonic_sort_pairs_pallas
+from repro.kernels.spgemm_acc import spgemm_paired_pallas
 from repro.kernels.spmm import spmm_pallas
 from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import col_prune as tprune
-from repro_torch.kernels import densify as tdensify
+from repro_torch.kernels.densify import densify, densify_cuda
 from repro_torch.kernels import spgemm_binned as tbinned
+from repro_torch.kernels import sort_engine as tsort
+from repro_torch.kernels import spgemm_acc as tacc
 from repro_torch.kernels import spgemm_hash as thash
-from repro_torch.kernels import spmm as tspmm
+from repro_torch.kernels.spmm import spmm, spmm_cuda
 from test_torch_cases import (
-    assert_vals, bin_both, binned_inputs, coo_entries, prune_block, random_chunks, torch_tables,
+    assert_vals, bin_both, binned_inputs, coo_entries, dense_random, dup_keys, paired_entries,
+    prune_block, random_chunks, torch_tables,
 )
 
 ADD_KINDS = ["sum", "min", "max"]
@@ -140,7 +146,7 @@ def test_spmm_plain_matches_pallas_and_local(cap, nnz):
     m, k, n = 48, 56, 72
     rows, cols, vals = coo_entries(seed=cap, m=m, n=k, cap=cap, nnz=nnz)
     b = np.random.default_rng(cap + 1).uniform(-1, 1, (k, n)).astype(np.float32)
-    got = tspmm.spmm(*(torch.as_tensor(x) for x in (rows, cols, vals, b)), m).numpy()
+    got = spmm(*(torch.as_tensor(x) for x in (rows, cols, vals, b)), m).numpy()
     want = np.asarray(spmm_pallas(*(jnp.asarray(x) for x in (rows, cols, vals, b)), m,
                                         interpret=True))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
@@ -170,13 +176,13 @@ def test_spmm_cuda_refuses_cpu_tensors():
     rows, cols, vals = coo_entries(seed=2, m=8, n=8, cap=16, nnz=10)
     b = torch.ones((8, 4))
     with pytest.raises(ValueError, match="CUDA"):
-        tspmm.spmm_cuda(*(torch.as_tensor(x) for x in (rows, cols, vals)), b, 8)
+        spmm_cuda(*(torch.as_tensor(x) for x in (rows, cols, vals)), b, 8)
 
 
 @pytest.mark.parametrize("m,n", [(40, 130), (129, 8)])
 def test_densify_plain_matches_pallas(m, n):
     rows, cols, vals = coo_entries(seed=m, m=m, n=n, cap=700, nnz=600)
-    got = tdensify.densify(*(torch.as_tensor(x) for x in (rows, cols, vals)), m, n).numpy()
+    got = densify(*(torch.as_tensor(x) for x in (rows, cols, vals)), m, n).numpy()
     want = np.asarray(densify_pallas(*(jnp.asarray(x) for x in (rows, cols, vals)),
                                               m, n, interpret=True))
     assert (got[rows[0], cols[0]] > 1.0) and np.count_nonzero(want) > 0  # duplicates summed
@@ -191,4 +197,107 @@ def test_densify_plain_matches_pallas(m, n):
 def test_densify_cuda_refuses_cpu_tensors():
     rows, cols, vals = coo_entries(seed=3, m=8, n=8, cap=16, nnz=10)
     with pytest.raises(ValueError, match="CUDA"):
-        tdensify.densify_cuda(*(torch.as_tensor(x) for x in (rows, cols, vals)), 8, 8)
+        densify_cuda(*(torch.as_tensor(x) for x in (rows, cols, vals)), 8, 8)
+
+
+@pytest.mark.parametrize("k", [1, 5, 64])
+def test_col_topk_threshold_matches_jax(k):
+    x = prune_block(seed=51 + k, kind="tied")
+    got = tprune.col_topk_threshold(torch.as_tensor(x), k).numpy()
+    want = jprune.col_topk_threshold_pallas(jnp.asarray(x), k)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    got = tprune.col_topk_threshold_ref(torch.as_tensor(x), k).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jprune.col_topk_threshold_ref(jnp.asarray(x), k)))
+
+
+@pytest.mark.parametrize("caps", [(300, 280, 4, 90, 80), (5000, 64, 16, 400, 8), (7, 9, 1, 7, 9)])
+def test_pairing_counts_match_jax(caps):
+    assert tbinned.pairing_counts(*caps) == jbinned.pairing_counts(*caps)
+
+
+@pytest.mark.parametrize("n", [8, 128, 2048])
+def test_bitonic_plain_matches_pallas(n):
+    """Same stages and tie rule: keys and values bit-identical."""
+    keys, vals = dup_keys(seed=n, n=n)
+    got_k, got_v = tsort.bitonic_sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals))
+    want_k, want_v = bitonic_sort_pairs_pallas(jnp.asarray(keys), jnp.asarray(vals),
+                                               interpret=True)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
+    np.testing.assert_array_equal(got_v.numpy().view(np.int32),
+                                  np.asarray(want_v).view(np.int32))
+    assert (np.diff(got_k.numpy()) >= 0).all()
+
+
+def test_bitonic_refuses_other_types():
+    keys, vals = dup_keys(seed=1, n=16)
+    with pytest.raises(TypeError, match="int32"):
+        tsort.bitonic_sort_pairs(torch.as_tensor(keys).long(), torch.as_tensor(vals))
+    with pytest.raises(TypeError, match="32-bit"):
+        tsort.bitonic_sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals).double())
+    with pytest.raises(ValueError, match="power of two"):
+        tsort.bitonic_sort_pairs(torch.as_tensor(keys[:12]), torch.as_tensor(vals[:12]))
+
+
+def test_bitonic_cuda_refuses_cpu_tensors():
+    keys, vals = dup_keys(seed=2, n=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsort.bitonic_sort_pairs_cuda(torch.as_tensor(keys), torch.as_tensor(vals))
+
+
+# the JAX package's paired-kernel test shapes (m, k, n), with blocks that cut
+# its grid to at most 8 steps: two row tiles, two A blocks, two B blocks
+PAIRED_SHAPES = [(8, 8, 8), (16, 24, 8), (33, 17, 9), (64, 40, 128)]
+
+
+def _paired_operands(seed, m, k, n, density=0.3):
+    a_x, b_x = dense_random(seed, m, k, density), dense_random(seed + 1, k, n, density)
+    a = jsparse.from_dense(jnp.asarray(a_x), cap=m * k // 2 + m)
+    b = jsparse.from_dense(jnp.asarray(b_x), cap=k * n // 2 + n)
+    av = np.where(np.asarray(a.valid_mask()), np.asarray(a.vals), 0).astype(np.float32)
+    bv = np.where(np.asarray(b.valid_mask()), np.asarray(b.vals), 0).astype(np.float32)
+    entries = [np.array(x) for x in (a.rows, a.cols)] + [av]
+    entries += [np.array(x) for x in (b.rows, b.cols)] + [bv]
+    return entries, a_x @ b_x
+
+
+def _half(x):
+    """A block size, a multiple of 8, that cuts ``x`` into two blocks."""
+    return max(8, -(-x // 16) * 8)
+
+
+def _blocks(m, cap_a, cap_b):
+    return dict(m_blk=_half(m), n_blk=128, a_blk=_half(cap_a), b_blk=_half(cap_b))
+
+
+@pytest.mark.parametrize("m,k,n", PAIRED_SHAPES)
+def test_paired_plain_matches_pallas(m, k, n):
+    entries, dense = _paired_operands(m + k + n, m, k, n)
+    got = tacc.spgemm_paired(*(torch.as_tensor(x) for x in entries), m, n).numpy()
+    want = spgemm_paired_pallas(*(jnp.asarray(x) for x in entries), m, n, interpret=True,
+                                **_blocks(m, len(entries[0]), len(entries[3])))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got, dense, rtol=1e-4, atol=1e-4)
+
+
+def test_paired_plain_unsorted_and_out_of_range():
+    """Sort-free: entries in any order give the same C, and live-valued
+    entries outside the output are skipped, as the Pallas kernel's one-hot
+    selectors skip them."""
+    m, k, n = 24, 16, 24
+    (ar, ac, av), (br, bc, bv) = paired_entries(seed=11, m=m, k=k, n=n, cap_a=200, nnz_a=150,
+                                                cap_b=200, nnz_b=150)
+    perm = np.random.default_rng(12).permutation(200)
+    entries = (ar[perm], ac[perm], av[perm], br, bc, bv)
+    got = tacc.spgemm_paired(*(torch.as_tensor(x) for x in entries), m, n).numpy()
+    want = spgemm_paired_pallas(*(jnp.asarray(x) for x in entries), m, n, interpret=True,
+                                **_blocks(m, 200, 200))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    unperm = tacc.spgemm_paired(*(torch.as_tensor(x) for x in (ar, ac, av, br, bc, bv)), m, n)
+    np.testing.assert_allclose(got, unperm.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_paired_cuda_refuses_cpu_tensors():
+    (ar, ac, av), (br, bc, bv) = paired_entries(seed=3, m=8, k=8, n=8, cap_a=16, nnz_a=10,
+                                                cap_b=16, nnz_b=10)
+    with pytest.raises(ValueError, match="CUDA"):
+        tacc.spgemm_paired_cuda(*(torch.as_tensor(x) for x in (ar, ac, av, br, bc, bv)), 8, 8)
