@@ -47,7 +47,8 @@ Phases (any failed check raises, so the script exits non-zero):
      equal torch.sort's, the values be bit-identical to the plain network
      on the same padding, and per-key value sums equal torch.sort +
      gather's. Both kernels timed as in 4, beside torch.sparse.mm and
-     torch.sort + gather as yardsticks.
+     torch.sort + gather as yardsticks; the bitonic kernel also on one
+     block of 2048 pairs (no cluster).
   6. The three dense-path kernels against their plain versions on batch 0
      of the dense MCL run's second multiply (the run of 8): col_prune
      bit-identical, SpMM within rtol 1e-5, densify within rtol 1e-6
@@ -144,7 +145,7 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    total_us, names = 0.0, set()
+    total_us, per_kernel = 0.0, {}
     for _ in range(reps):
         if setup is not None:
             setup()
@@ -158,9 +159,13 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
         if not any(kernel in ev.name for ev in dev):
             raise RuntimeError(f"profiler recorded no device time for {kernel}: "
                                f"{sorted({ev.name for ev in dev})}")
-        total_us += sum(ev.time_range.elapsed_us() for ev in dev)
-        names |= {ev.name[:100] for ev in dev}
-    log(f"  profiled on the card: {sorted(names)}")
+        for ev in dev:
+            us = ev.time_range.elapsed_us()
+            total_us += us
+            per_kernel[ev.name[:100]] = per_kernel.get(ev.name[:100], 0.0) + us
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    log("  profiled on the card, us per call: "
+        + "; ".join(f"{name} {us / reps / calls:.3f}" for name, us in ranked))
     return total_us / reps / calls / 1e3
 
 
@@ -426,9 +431,9 @@ def ops_phase(a_cat, b_cat, kb, bin_of_k):
 
     from repro_torch.core import local_spgemm, semiring as sr
     from repro_torch.kernels import ops, sort_engine as So, spgemm_acc as Ac
-    from repro_torch.kernels.densify import densify_cuda
+    from repro_torch.kernels.densify_kernel import densify_cuda
     from repro_torch.kernels.spgemm_binned import spgemm_paired_binned_cuda
-    from repro_torch.kernels.spmm import spmm_cuda
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
 
     m, k = a_cat.shape
     _, n = b_cat.shape
@@ -482,7 +487,7 @@ def ops_phase(a_cat, b_cat, kb, bin_of_k):
     log(f"spgemm_paired: A {cap_a} slots x B {cap_b} slots = {cap_a * cap_b} pairings, "
         f"{matches} matching pairs, C ({m}, {n}); max abs err {err:.3g} (plain), "
         f"{lib_err:.3g} (torch.sparse.mm)")
-    ms = device_ms(lambda: Ac.spgemm_paired_cuda(*args), 1, "paired_kernel", 10)
+    ms = device_ms(lambda: Ac.spgemm_paired_cuda(*args), 1, "paired_match_kernel", 10)
     events = cuda_ms(lambda: Ac.spgemm_paired_cuda(*args), 10)
     plain = cuda_ms(lambda: Ac.spgemm_paired_ref(*args), 2)
     lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_sp, b_sp))
@@ -521,7 +526,12 @@ def ops_phase(a_cat, b_cat, kb, bin_of_k):
             So.bitonic_sort_pairs_cuda(k16, v16)
 
     sorts()  # warm-up
-    ms = device_ms(sorts, SORT_CALLS, "bitonic_pairs_kernel", 10)
+    ms = device_ms(sorts, SORT_CALLS, "bitonic_cluster_kernel", 10)
+    # one block of 2048 pairs: the network inside a block, with no cluster
+    k11, v11 = keys[:2048].contiguous(), vals[:2048].contiguous()
+    ms11 = device_ms(lambda: [So.bitonic_sort_pairs_cuda(k11, v11) for _ in range(SORT_CALLS)],
+                     SORT_CALLS, "bitonic_cluster_kernel", 10)
+    log(f"bitonic_sort_pairs 2048 (one block, no cluster): {ms11:.6f} ms device time")
     events = cuda_ms(sorts, 10) / SORT_CALLS
     plain = cuda_ms(lambda: So.bitonic_sort_pairs_ref(k16, v16), 3)
 
@@ -614,8 +624,8 @@ def run_mcl(fn, a, grid, cfg, label):
     import torch
 
     from repro_torch.kernels import col_prune, spgemm_binned, spgemm_hash
-    from repro_torch.kernels.densify import densify_cuda
-    from repro_torch.kernels.spmm import spmm_cuda
+    from repro_torch.kernels.densify_kernel import densify_cuda
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
     from repro_torch.sparse_apps import mcl
 
     wrappers = {
@@ -800,8 +810,8 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     import torch
 
     from repro_torch.kernels import col_prune as P
-    from repro_torch.kernels.densify import densify_cuda, densify_ref
-    from repro_torch.kernels.spmm import spmm_cuda, spmm_ref
+    from repro_torch.kernels.densify_kernel import densify_cuda, densify_ref
+    from repro_torch.kernels.spmm_kernel import spmm_cuda, spmm_ref
 
     out = {}
     m, kk = a_cat.shape

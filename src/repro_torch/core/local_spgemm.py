@@ -30,7 +30,7 @@ from . import sparse as sparse_mod
 from .sparse import SparseCOO
 from ..kernels import spgemm_binned as binnedkern
 from ..kernels import spgemm_hash as hashkern
-from ..kernels.spmm import spmm as spmm_entries
+from ..kernels.spmm_kernel import spmm as spmm_entries
 
 Tensor = torch.Tensor
 
@@ -50,7 +50,7 @@ def _colptr(a_csc: SparseCOO) -> Tuple[Tensor, Tensor]:
 def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -> Tensor:
     """Sparse A times dense B.
 
-    On the card this is the SpMM kernel (``kernels.spmm``), which sums:
+    On the card this is the SpMM kernel (``kernels.spmm_kernel``), which sums:
     any other semiring raises there. CPU tensors take the semiring-generic
     plain version: gather B's rows by A's column index, multiply, and
     segment-reduce by A's row.

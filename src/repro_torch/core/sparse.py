@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import sortkeys
-from ..kernels.densify import densify as densify_entries
+from ..kernels.densify_kernel import densify as densify_entries
 
 Tensor = torch.Tensor
 
@@ -62,7 +62,7 @@ class SparseCOO:
 
     def to_dense(self) -> Tensor:
         """Dense (m, n) matrix, duplicates summed, padding skipped — the
-        densify kernel on the card (``kernels.densify``)."""
+        densify kernel on the card (``kernels.densify_kernel``)."""
         m, n = self.shape
         return densify_entries(self.rows, self.cols, self.vals, m, n)
 

@@ -7,14 +7,12 @@ JAX package's oracle names (``ref``):
   spgemm_acc     sort-free paired multiply
   sort_engine    bitonic sort of (key, value) pairs
   col_prune      per-column top-k bisection
-  spmm           sparse × dense
-  densify        COO → dense tile
+  spmm_kernel    sparse × dense
+  densify_kernel COO → dense tile
 
 ``_build`` compiles ``csrc/`` with nvcc at first launch; importing builds
-nothing. The package exports the ``ops`` wrappers by name, which hides the
-``spmm`` and ``densify`` submodules behind them: import those modules'
-functions from the modules themselves (``from repro_torch.kernels.spmm
-import spmm_cuda``).
+nothing. The package exports the ``ops`` wrappers by name:
+``repro_torch.kernels.spmm`` and ``.densify`` are those functions.
 """
 from . import ops, ref  # noqa: F401
 from .ops import (  # noqa: F401

@@ -19,11 +19,11 @@ from typing import TYPE_CHECKING, Tuple
 
 import torch
 
-from . import densify as densifykern
+from . import densify_kernel as densifykern
 from . import sort_engine
 from . import spgemm_acc
 from . import spgemm_binned
-from . import spmm as spmmkern
+from . import spmm_kernel as spmmkern
 
 if TYPE_CHECKING:
     from ..core.sparse import SparseCOO

@@ -1,5 +1,5 @@
 """Bitonic sort of (key, value) pairs — the packed-key engine's single-key
-sort primitive for arrays that fit on one SM.
+sort primitive for arrays of up to 2^14 pairs.
 
 A bitonic network runs log²(N)/2 compare-exchange stages over a power-of-two
 length N; stage (kk, jj) pairs element i with i ^ jj and orders the pair
@@ -7,8 +7,8 @@ ascending when bit kk of i is 0, descending otherwise. The network has no
 data-dependent control flow and no atomics, so the kernel, the plain version
 and the JAX package's network give bit-identical keys and values.
 
-  * ``bitonic_sort_pairs_cuda`` — the Hopper kernel (``csrc/sort_engine.cu``);
-    replaces the TPU kernel
+  * ``bitonic_sort_pairs_cuda`` — the Hopper kernel (``csrc/sort_engine.cu``:
+    one thread block cluster, pairs held in registers); replaces the TPU kernel
     ``repro/kernels/sort_engine.py::bitonic_sort_pairs_pallas``.
   * ``bitonic_sort_pairs_ref`` — the plain PyTorch version: the same stages
     as a reshape to (N/2jj, 2, jj) and ``torch.where``.
@@ -35,8 +35,8 @@ from . import _build
 
 Tensor = torch.Tensor
 
-#: Largest pair count the network sorts: 2^14 pairs × 8 bytes = 128 KiB of
-#: shared memory in one block.
+#: Largest pair count the network sorts (the JAX package's limit): on the card
+#: a cluster of 8 blocks of 2048 pairs.
 MAX_BITONIC_ELEMS = 1 << 14
 
 # bitonic_sort_pairs_launch(keys, vals, n, keys_out, vals_out, stream)
@@ -89,8 +89,9 @@ def bitonic_sort_pairs_ref(keys: Tensor, vals: Tensor) -> Tuple[Tensor, Tensor]:
 
 
 def bitonic_sort_pairs_cuda(keys: Tensor, vals: Tensor) -> Tuple[Tensor, Tensor]:
-    """Launch the Hopper kernel on the current stream (one block, the whole
-    array in shared memory)."""
+    """Launch the Hopper kernel on the current stream: one cluster of
+    n / 2048 blocks (one block below 2048 pairs). Raises if the card
+    refuses the launch."""
     _check(keys, vals)
     dev = keys.device
     if dev.type != "cuda" or vals.device != dev:

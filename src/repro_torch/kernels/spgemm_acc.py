@@ -4,14 +4,14 @@ f32 C (m×n).
 Every (A entry, B entry) pair is matched on the contraction index, and each
 match adds ``a_val · b_val`` at (a_row, b_col) of a dense accumulator: no
 ordering of either operand is needed (the paper's sort-free property,
-§IV-D), and no partial-product list is ever materialized. The work is
-capA × capB comparisons, which the narrow B column blocks of batching
-(Alg. 4) keep affordable; ``spgemm_binned`` cuts it to Σ_g capA_g × capB_g
-by bucketing both operands by contraction range first.
+§IV-D), and no partial-product list is ever materialized. The TPU kernel
+does capA × capB comparisons, which the narrow B column blocks of batching
+(Alg. 4) keep affordable; the Hopper kernel buckets B by contraction index
+on the card first, so its work is O(capA + capB + matches).
 
-  * ``spgemm_paired_cuda`` — the Hopper kernel (``csrc/spgemm_acc.cu``);
-    replaces the TPU kernel ``repro/kernels/spgemm_acc.py::
-    spgemm_paired_pallas``.
+  * ``spgemm_paired_cuda`` — the Hopper kernel (``csrc/spgemm_acc.cu``: count,
+    scan, scatter, match); replaces the TPU kernel
+    ``repro/kernels/spgemm_acc.py::spgemm_paired_pallas``.
   * ``spgemm_paired_ref`` — the plain PyTorch version (the JAX package's
     ``kernels/ref.py::spgemm_paired_ref``): the match matrix in chunks of
     A's entries, and a scatter-add of the matching pairs' products.
@@ -36,10 +36,18 @@ Tensor = torch.Tensor
 #: Match-matrix elements the plain version forms at once (A chunk × capB).
 MATCH_CHUNK_ELEMS = 1 << 26
 
+#: Most buckets the kernel sorts B's entries into (its scan's index range).
+MAX_BUCKETS = 1 << 30
+#: Bucket counts one block of the kernel's scan covers (``kScanSpanLog`` in
+#: ``csrc/spgemm_acc.cu``): the wrapper sizes the blocks' bases by it.
+SCAN_SPAN = 1 << 16
+
 # spgemm_paired_launch(a_rows, a_cols, a_vals, cap_a, b_rows, b_cols, b_vals,
-#                      cap_b, m, n, out, stream)
+#                      cap_b, m, n, out, nb, counts, offsets, block_base, rank,
+#                      records, stream)
 _LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 6)
 
 
 def _check(a_rows, a_cols, a_vals, b_rows, b_cols, b_vals) -> None:
@@ -76,7 +84,9 @@ def spgemm_paired_cuda(
     a_rows: Tensor, a_cols: Tensor, a_vals: Tensor,
     b_rows: Tensor, b_cols: Tensor, b_vals: Tensor, m: int, n: int,
 ) -> Tensor:
-    """Launch the Hopper kernel on the current stream into a zeroed C."""
+    """Launch the Hopper kernels on the current stream into a zeroed C: B
+    bucketed by contraction index (``nb`` buckets, the power of two >=
+    capB), then one pass over A."""
     _check(a_rows, a_cols, a_vals, b_rows, b_cols, b_vals)
     tensors = (a_rows, a_cols, a_vals, b_rows, b_cols, b_vals)
     dev = a_rows.device
@@ -91,10 +101,17 @@ def spgemm_paired_cuda(
     out = torch.zeros((m, n), dtype=torch.float32, device=dev)
     if cap_a == 0 or cap_b == 0 or m == 0 or n == 0:
         return out
+    nb = min(1 << (cap_b - 1).bit_length(), MAX_BUCKETS)
+    counts = torch.zeros(nb, dtype=torch.int32, device=dev)
+    offsets = torch.empty(nb, dtype=torch.int32, device=dev)
+    block_base = torch.empty(-(-nb // SCAN_SPAN), dtype=torch.int32, device=dev)
+    rank = torch.empty(cap_b, dtype=torch.int32, device=dev)
+    records = torch.empty((cap_b, 4), dtype=torch.int32, device=dev)  # (row, col, val bits, 0)
     fn = _build.entry("spgemm_acc", "spgemm_paired_launch", _LAUNCH_ARGTYPES)
     err = fn(a_rows.data_ptr(), a_cols.data_ptr(), a_vals.data_ptr(), cap_a,
              b_rows.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(), cap_b, m, n,
-             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+             out.data_ptr(), nb, counts.data_ptr(), offsets.data_ptr(), block_base.data_ptr(),
+             rank.data_ptr(), records.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spgemm_paired_cuda")
     spgemm_paired_cuda.launches += 1
     return out

@@ -140,3 +140,58 @@ def paired_entries(seed, m, k, n, cap_a, nnz_a, cap_b, nnz_b):
         out_idx[slots] = bad
         vals[slots] = 7.0  # nonzero: only the index range drops them
     return (a_rows, a_cols, a_vals), (b_rows, b_cols, b_vals)
+
+
+#: Key patterns of the bitonic tests: the packed-key engine's duplicate-heavy
+#: keys, keys over the whole int32 range, one key, and two distinct keys.
+SORT_KINDS = ("dup", "random", "equal", "two")
+
+
+def sort_keys(seed, n, kind):
+    """int32 keys of one of ``SORT_KINDS`` and f32 values, both of length n."""
+    keys, vals = dup_keys(seed, n)
+    rng = np.random.default_rng(seed + 1)
+    if kind == "random":
+        keys = rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32)
+    elif kind == "equal":
+        keys = np.full(n, 5, np.int32)
+    elif kind == "two":
+        keys = rng.choice(np.array([-1, 3], np.int32), n)
+    return keys, vals
+
+
+def meet_outside_k(a, b, m, k, n, seed, count=40):
+    """Give ``count`` live A entries and ``count`` live B entries (row in
+    [0, m), column in [0, n)) the contraction indices -7 and k + 3, half
+    each, so that they meet outside [0, k): the paired multiply matches any
+    int32 contraction value. Changes ``a`` and ``b`` in place."""
+    rng = np.random.default_rng(seed)
+    for idx, out_idx, bound in ((a[1], a[0], m), (b[0], b[1], n)):
+        live = np.flatnonzero((out_idx >= 0) & (out_idx < bound))
+        slots = rng.choice(live, size=count, replace=False)
+        idx[slots[: count // 2]] = -7
+        idx[slots[count // 2:]] = k + 3
+
+
+def paired_case(kind, seed=61):
+    """Operands ``(a, b, m, n)`` of the paired multiply's card tests:
+    "mixed" (padding on both sides, live entries outside the output),
+    "skew" (one contraction index holds 4096 of B's entries), "outside_k"
+    (entries meet on contraction indices -7 and k + 3), "b_padding" (B is
+    all padding), "odd_cap_b" (capB not a power of two) and "large_cap_b"
+    (capB above 2^17, contraction indices past the bucket count)."""
+    m, k, n = 700, 900, 600
+    cap_a, nnz_a, cap_b, nnz_b = 20000, 18000, 5000, 4500
+    if kind == "odd_cap_b":
+        cap_b, nnz_b = 4999, 4321
+    elif kind == "large_cap_b":
+        k, cap_b, nnz_b = (1 << 18) + 5000, (1 << 17) + 3, 120000
+    a, b = paired_entries(seed, m, k, n, cap_a, nnz_a, cap_b, nnz_b)
+    if kind == "skew":
+        b[0][:4096] = 17
+        a[1][:300] = 17
+    elif kind == "outside_k":
+        meet_outside_k(a, b, m, k, n, seed)
+    elif kind == "b_padding":
+        b[0][:], b[1][:], b[2][:] = k, n, 0.0
+    return a, b, m, n

@@ -7,7 +7,8 @@ this file imports no JAX, so it runs on the GPU machine:
 Tolerances: sums within rtol 1e-5 (atomics add in a run-dependent order;
 densify's sums of duplicates within rtol 1e-6), key sets, min/max values
 and drop/no-drop exact, the column top-k bracket and the bitonic sort's
-keys and values bit-identical.
+keys and values bit-identical. The paired multiply's rtol 1e-5 / atol 1e-6
+allows for the order of its atomic sums.
 """
 import numpy as np
 import pytest
@@ -17,15 +18,15 @@ from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import col_prune as tprune
-from repro_torch.kernels.densify import densify_cuda, densify_ref
+from repro_torch.kernels.densify_kernel import densify_cuda, densify_ref
 from repro_torch.kernels import sort_engine as tsort
 from repro_torch.kernels import spgemm_acc as tacc
 from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import spgemm_hash as thash
-from repro_torch.kernels.spmm import spmm_cuda, spmm_ref
+from repro_torch.kernels.spmm_kernel import spmm_cuda, spmm_ref
 from test_torch_cases import (
-    assert_vals, bin_both, binned_inputs, coo_entries, dup_keys, paired_entries, prune_block,
-    random_chunks, torch_tables,
+    SORT_KINDS, assert_vals, bin_both, binned_inputs, coo_entries, dup_keys, paired_case,
+    prune_block, random_chunks, sort_keys, torch_tables,
 )
 
 pytestmark = pytest.mark.cuda
@@ -112,11 +113,14 @@ def test_local_spmm_on_the_card_sums_only(cuda_device):
         tlocal.spmm(a, b, tsr.MIN_PLUS)
 
 
-@pytest.mark.parametrize("n", [2, 1024, 8192, 16384])
-def test_bitonic_cuda_matches_plain(cuda_device, n):
-    """8192 pairs and more need the kernel's shared-memory opt-in (64 KiB
-    and 128 KiB of the block's dynamic shared memory)."""
-    keys, vals = dup_keys(seed=n, n=n)
+@pytest.mark.parametrize("kind", SORT_KINDS)
+@pytest.mark.parametrize("n", [1 << i for i in range(15)])
+def test_bitonic_cuda_matches_plain(cuda_device, n, kind):
+    """Every power of two up to 2^14: one block up to 2048 pairs, a cluster
+    of n / 2048 blocks above, whose cross-block stages push their pairs
+    into the partner block through distributed shared memory. Ties swap by the reference's
+    rule, so equal and two-valued keys pin the values' order too."""
+    keys, vals = sort_keys(seed=n, n=n, kind=kind)
     k, v = torch.as_tensor(keys, device=cuda_device), torch.as_tensor(vals, device=cuda_device)
     before = tsort.bitonic_sort_pairs_cuda.launches
     got_k, got_v = tsort.bitonic_sort_pairs(k, v)
@@ -128,6 +132,7 @@ def test_bitonic_cuda_matches_plain(cuda_device, n):
     # an int32 payload moves as the same bits
     iv = v.view(torch.int32)
     assert torch.equal(tsort.bitonic_sort_pairs_cuda(k, iv)[1], want_v.view(torch.int32))
+    assert tsort.bitonic_sort_pairs_cuda.launches == before + 2
 
 
 def test_sort_pairs_cuda_pads_and_routes(cuda_device):
@@ -145,16 +150,20 @@ def test_sort_pairs_cuda_pads_and_routes(cuda_device):
         torch.testing.assert_close(sums, ref_sums, rtol=0, atol=1e-5)
 
 
-def test_paired_cuda_matches_plain(cuda_device):
+@pytest.mark.parametrize(
+    "kind", ["mixed", "skew", "outside_k", "b_padding", "odd_cap_b", "large_cap_b"])
+def test_paired_cuda_matches_plain(cuda_device, kind):
     """Padding on both sides (meeting on the contraction sentinel) and
-    live-valued entries outside the output are skipped."""
-    m, k, n = 700, 900, 600
-    a, b = paired_entries(seed=61, m=m, k=k, n=n, cap_a=20000, nnz_a=18000,
-                          cap_b=5000, nnz_b=4500)
+    live-valued entries outside the output are skipped; a heavy contraction
+    index (4096 B entries: its bucket is walked by whole warps), contraction
+    indices outside [0, k), an all-padding B, and capB not a power of two or
+    above 2^17 (the two-level scan of the bucket counts) all match the plain
+    version."""
+    a, b, m, n = paired_case(kind)
     args = [torch.as_tensor(x, device=cuda_device) for x in (*a, *b)]
     before = tacc.spgemm_paired_cuda.launches
     got = tacc.spgemm_paired(*args, m, n)
     assert tacc.spgemm_paired_cuda.launches == before + 1
     want = tacc.spgemm_paired_ref(*args, m, n)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert int((want != 0).sum()) > 0
+    assert (int((want != 0).sum()) == 0) == (kind == "b_padding")

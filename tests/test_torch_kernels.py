@@ -38,15 +38,15 @@ from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import col_prune as tprune
-from repro_torch.kernels.densify import densify, densify_cuda
+from repro_torch.kernels.densify_kernel import densify, densify_cuda
 from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import sort_engine as tsort
 from repro_torch.kernels import spgemm_acc as tacc
 from repro_torch.kernels import spgemm_hash as thash
-from repro_torch.kernels.spmm import spmm, spmm_cuda
+from repro_torch.kernels.spmm_kernel import spmm, spmm_cuda
 from test_torch_cases import (
-    assert_vals, bin_both, binned_inputs, coo_entries, dense_random, dup_keys, paired_entries,
-    prune_block, random_chunks, torch_tables,
+    assert_vals, bin_both, binned_inputs, coo_entries, dense_random, dup_keys, meet_outside_k,
+    paired_entries, prune_block, random_chunks, sort_keys, torch_tables,
 )
 
 ADD_KINDS = ["sum", "min", "max"]
@@ -215,10 +215,13 @@ def test_pairing_counts_match_jax(caps):
     assert tbinned.pairing_counts(*caps) == jbinned.pairing_counts(*caps)
 
 
-@pytest.mark.parametrize("n", [8, 128, 2048])
-def test_bitonic_plain_matches_pallas(n):
-    """Same stages and tie rule: keys and values bit-identical."""
-    keys, vals = dup_keys(seed=n, n=n)
+@pytest.mark.parametrize("n,kind", [(8, "dup"), (128, "dup"), (2048, "dup"), (128, "equal"),
+                                    (128, "two")],
+                         ids=["8", "128", "2048", "128-equal", "128-two"])
+def test_bitonic_plain_matches_pallas(n, kind):
+    """Same stages and tie rule: keys and values bit-identical, also where
+    every key ties (each stage's direction alone decides the swap)."""
+    keys, vals = sort_keys(seed=n, n=n, kind=kind)
     got_k, got_v = tsort.bitonic_sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals))
     want_k, want_v = bitonic_sort_pairs_pallas(jnp.asarray(keys), jnp.asarray(vals),
                                                interpret=True)
@@ -294,6 +297,29 @@ def test_paired_plain_unsorted_and_out_of_range():
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
     unperm = tacc.spgemm_paired(*(torch.as_tensor(x) for x in (ar, ac, av, br, bc, bv)), m, n)
     np.testing.assert_allclose(got, unperm.numpy(), rtol=1e-5, atol=1e-6)
+
+
+def test_paired_plain_matches_pallas_outside_k():
+    """Live entries whose contraction index lies outside [0, k) (-7 and
+    k + 3 on both sides) meet and contribute, in the Pallas kernel as in the
+    plain version: matching is integer equality, with no k to bound it."""
+    m, k, n = 24, 16, 24
+    a, b = paired_entries(seed=13, m=m, k=k, n=n, cap_a=200, nnz_a=150, cap_b=200, nnz_b=150)
+    meet_outside_k(a, b, m, k, n, seed=14)
+    entries = (*a, *b)
+    got = tacc.spgemm_paired(*(torch.as_tensor(x) for x in entries), m, n).numpy()
+    want = spgemm_paired_pallas(*(jnp.asarray(x) for x in entries), m, n, interpret=True,
+                                **_blocks(m, 200, 200))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    # the same sums written out: every (A, B) pair that agrees on the index
+    (ar, ac, av), (br, bc, bv) = a, b
+    dense = np.zeros((m, n), np.float64)
+    for i in np.flatnonzero((ar >= 0) & (ar < m)):
+        for j in np.flatnonzero((ac[i] == br) & (bc >= 0) & (bc < n)):
+            dense[ar[i], bc[j]] += float(av[i]) * float(bv[j])
+    np.testing.assert_allclose(got, dense, rtol=1e-5, atol=1e-6)
+    outside = (ac[:, None] == br[None, :]) & ((ac < 0) | (ac >= k))[:, None]
+    assert outside.sum() >= 100  # the out-of-range indices really meet
 
 
 def test_paired_cuda_refuses_cpu_tensors():
