@@ -16,20 +16,29 @@ Phases (any failed check raises, so the script exits non-zero):
        a. full size, memory-constrained, hash path: C = A·A for a
           protein-similarity-like A with n = 2^20 (the repo's
           spgemm_eukarya_like size), a budget that forces b >= 1024 batches;
-       b. the same product on the ESC path, same budget;
+          the fused hash kernel must launch exactly once per batch and the
+          one-chunk kernel never;
+       b. the same product on the ESC path, same budget (the segment-reduce
+          kernel sums every batch);
        c. the default path: n = 2^14, budget 48 B x nnz(A), local_path
           "auto", which plans the k-binned multiply with b = 16.
      Each product is checked against scipy's A @ A on the host: identical
      structure, values within rtol 1e-4 (fp32 sums in another order).
   4. Each kernel against its plain PyTorch version on the card, on the
-     operands of batch 0 of the run above that uses it: the hash insert for
-     sum/min/max in a table that fits (same key set, sums within rtol 1e-5
-     since atomics add in a run-dependent order, min/max exact, no drops)
-     and in one that is far too small (both drop); the binned multiply
-     within rtol 1e-5 / atol 1e-6 (atomic f32 adds). A kernel's time is the
+     operands of batch 0 of the run above that uses it: the one-chunk hash
+     insert on batch 0's chunks and the fused hash kernel on the whole
+     batch, each for sum/min/max in a table that fits (same key set, sums
+     within rtol 1e-5 since atomics add in a run-dependent order, min/max
+     exact, no drops) and in one that is far too small (both drop); the
+     hash run's per-batch split of wall and device time; the binned
+     multiply within rtol 1e-5 / atol 1e-6 (atomic f32 adds); the segment
+     reduction on the ESC run's batch 0 sum (rtol 1e-5, bit-identical
+     between calls), beside torch.segment_reduce and the scatter_reduce_
+     it replaced; and the ESC multiply of that batch run twice, which must
+     give the same bits. A kernel's time is the
      device time of its wrapper per call (every kernel and memset the
      wrapper puts on the card, from torch.profiler); it raises if the
-     profiler records none. A library call's time (the yardstick) is its
+     profiler records none in 3 profiled runs of a rep. A library call's time (the yardstick) is its
      device time, measured the same way; plain times are CUDA-event times.
      A kernel's bound counts the bytes its wrapper must move on this run's
      data (inputs read once, outputs written once) against the card's
@@ -41,26 +50,29 @@ Phases (any failed check raises, so the script exits non-zero):
      product by spgemm_paired_binned (the run's bin plan) and by
      spmm(densify(B)), and sort_pairs on the packed keys and values of
      batch 0's first partial products at 2^14 pairs (the bitonic kernel),
-     12345 (padded, the bitonic kernel) and 2^14 + 8 (routed to
+     12345 (padded, the bitonic kernel) and 2^14 + 8 (routed to a stable
      torch.sort). The paired kernel must agree with its plain version and
      both counterparts within rtol 1e-5 / atol 1e-6; the sorted keys must
      equal torch.sort's, the values be bit-identical to the plain network
-     on the same padding, and per-key value sums equal torch.sort +
-     gather's. Both kernels timed as in 4, beside torch.sparse.mm and
-     torch.sort + gather as yardsticks; the bitonic kernel also on one
-     block of 2048 pairs (no cluster).
+     on the same padding (to a stable torch.sort + gather when routed),
+     and per-key value sums equal torch.sort + gather's. Both kernels timed
+     as in 4, beside torch.sparse.mm and torch.sort + gather as
+     yardsticks; the bitonic kernel also on one block of 2048 pairs (no
+     cluster).
   6. The three dense-path kernels against their plain versions on batch 0
      of the dense MCL run's second multiply (the run of 8): col_prune
-     bit-identical, SpMM within rtol 1e-5, densify within rtol 1e-6
-     (atomic sums of duplicates), each timed as in 4, beside one PyTorch
-     call that computes the same function (torch.topk, torch.sparse.mm,
-     index_put_), timed only as a yardstick.
+     bit-identical, SpMM within rtol 1e-5 in f32 and with bf16 values and
+     B (both sum in f32), bit-identical between calls, densify within rtol
+     1e-6 (atomic sums of duplicates), each timed as in 4, beside one
+     PyTorch call that computes the same function (torch.topk,
+     torch.sparse.mm, index_put_), timed only as a yardstick.
   7. Markov clustering (sparse_apps.mcl.mcl_iterate), sparse path, n = 2^18:
      a column-stochastic protein-similarity-like input (64-node clusters),
      inflation 2, threshold 1e-4, top-64 per column, 4 iterations under a
      2 GiB per-process budget. First a profile of one batch of the second
      iteration (the multiply step and the prune, top ops by device time),
-     then the loop, held against the host loop (mcl_iterate_host: the same
+     then the loop, twice (both trajectories printed, and whether they are
+     bit-identical), held against the host loop (mcl_iterate_host: the same
      card multiply, pruning in numpy): nnz trajectories equal within 1e-5
      per iteration (every difference printed: f32 sums in another order can
      move an entry across the threshold), chaos within rtol 1e-3, identical
@@ -70,10 +82,13 @@ Phases (any failed check raises, so the script exits non-zero):
      4 forced batches of 16384 x 4096 f32 tiles, 6 iterations, held against
      the sparse device loop and the host loop: nnz trajectories as in 7,
      identical partitions; the col_prune, SpMM and densify kernels must
-     launch.
+     launch. The dense loop and the sparse loop on the ESC multiply each
+     run twice and must repeat their results bit for bit (the binned
+     multiply, which the sparse loop plans by default, adds with atomics).
 
-The last two lines are a JSON object with one entry per ported kernel (all
-seven) and the JSON result line. Without a CUDA device, or without the
+The last two lines are a JSON object with one entry per kernel (the seven
+that replace the TPU kernels, the hash row per batch, and the segment
+reduction) and the JSON result line. Without a CUDA device, or without the
 repository's src/ beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -106,6 +121,7 @@ MCL_BUDGET = 2 << 30  # per-process bytes: iteration 2 of the n = 2^18 run plans
 # threshold: their nnz may differ by this share per iteration, never more
 NNZ_RTOL = 1e-5
 PROFILE_MARGIN_S = 0.02  # idle time around a profiled window (see device_ms)
+PROFILE_ATTEMPTS = 3  # profiled runs of one rep before a window without device events fails
 SORT_CALLS = 20  # bitonic sorts per profiled window: one is ~tens of microseconds
 
 
@@ -139,26 +155,34 @@ def device_ms(fn, calls: int, kernel: str, reps: int, setup=None) -> float:
     profiled window). The window keeps PROFILE_MARGIN_S of idle time before
     and after ``fn()``: device events of a window of a few microseconds
     went missing on the card, which the margin guards against (only device
-    events are summed, so it adds nothing to the time). Raises if no kernel
-    named ``kernel`` was recorded."""
+    events are summed, so it adds nothing to the time). Even so, a window
+    now and then comes back with no device event at all (seen once in
+    ~200 windows of one run): such a rep is profiled again, and the call
+    raises if PROFILE_ATTEMPTS runs in a row record no kernel named
+    ``kernel``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     total_us, per_kernel = 0.0, {}
     for _ in range(reps):
-        if setup is not None:
-            setup()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_MARGIN_S)
-            fn()
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            if setup is not None:
+                setup()
             torch.cuda.synchronize()
-            time.sleep(PROFILE_MARGIN_S)
-        dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-        if not any(kernel in ev.name for ev in dev):
-            raise RuntimeError(f"profiler recorded no device time for {kernel}: "
-                               f"{sorted({ev.name for ev in dev})}")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(PROFILE_MARGIN_S)
+            dev = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            if any(kernel in ev.name for ev in dev):
+                break
+            log(f"  profiled run {attempt} of {PROFILE_ATTEMPTS} recorded no device time for "
+                f"{kernel!r}: {sorted({ev.name for ev in dev})}")
+        else:
+            raise RuntimeError(f"profiler recorded no device time for {kernel!r} in "
+                               f"{PROFILE_ATTEMPTS} runs")
         for ev in dev:
             us = ev.time_range.elapsed_us()
             total_us += us
@@ -353,6 +377,164 @@ def check_hash_kernel(a_cat, b_cat, hc):
     return (max_err,) + timing
 
 
+def check_fused_hash(a_cat, b_cat, hc):
+    """The fused hash kernel (one launch per batch) against its plain
+    version (the chunk loop) on batch 0's whole expansion: sum/min/max in
+    the planned table and in one far too small. Returns (max abs err,
+    kernel ms per batch, plain ms per batch, bytes per batch, ops per
+    batch)."""
+    import torch
+
+    from repro_torch.core import local_spgemm, semiring as sr
+    from repro_torch.kernels import spgemm_hash as H
+
+    dev = a_cat.device
+    x, total = local_spgemm.hash_expansion(a_cat, b_cat)
+    nc, cc = hc.num_chunks, hc.chunk_cap
+    max_err, distinct = 0.0, None
+
+    def run(fn, table_cap, semi):
+        tk = torch.full((table_cap,), H.EMPTY, dtype=torch.int32, device=dev)
+        tv = torch.full((table_cap,), H.table_init_val(semi.add_kind), device=dev)
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        fn(tk, tv, dropped, x, cc, nc, semiring=semi, max_probes=hc.max_probes)
+        skey, perm = torch.sort(tk)
+        return skey, tv[perm], int(dropped)
+
+    for semi in (sr.PLUS_TIMES, sr.MIN_PLUS, sr.MAX_TIMES):
+        kind = semi.add_kind
+        (kk, kv, kd), (pk, pv, pd) = (run(fn, hc.table_cap, semi) for fn in
+                                      (H.hash_expand_insert_cuda, H.hash_expand_insert_ref))
+        if kd or pd:
+            raise AssertionError(f"fused hash {kind}: drops in the planned table {kd} {pd}")
+        if not torch.equal(kk, pk):
+            raise AssertionError(f"fused hash {kind}: key sets differ")
+        live = kk != H.EMPTY
+        distinct = int(live.sum())
+        diff = (kv[live] - pv[live]).abs()
+        max_err = max(max_err, float(diff.max()))
+        ok = (bool((diff <= KERNEL_RTOL * pv[live].abs()).all()) if kind == "sum"
+              else torch.equal(kv[live], pv[live]))
+        if not ok:
+            raise AssertionError(f"fused hash {kind}: values differ, max {float(diff.max())}")
+        small = max(8, 1 << (distinct.bit_length() - 4))  # about an eighth of the keys
+        (_, _, kd), (_, _, pd) = (run(fn, small, semi) for fn in
+                                  (H.hash_expand_insert_cuda, H.hash_expand_insert_ref))
+        if not (kd > 0 and pd > 0):
+            raise AssertionError(f"fused hash {kind}: small table must drop in both ({kd}, {pd})")
+        log(f"fused hash {kind}: table {hc.table_cap}, {distinct} keys, flops {int(total)}, "
+            f"max abs err {float(diff.max()):.3g}; table {small}: dropped {kd} (kernel) "
+            f"{pd} (plain)")
+
+    tk = torch.empty((hc.table_cap,), dtype=torch.int32, device=dev)
+    tv = torch.empty((hc.table_cap,), device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def reset():
+        tk.fill_(H.EMPTY)
+        tv.fill_(0.0)
+
+    def insert(fn):
+        return lambda: fn(tk, tv, dropped, x, cc, nc, semiring=sr.PLUS_TIMES,
+                          max_probes=hc.max_probes)
+
+    reset()
+    insert(H.hash_expand_insert_cuda)()  # warm-up
+    ms = device_ms(insert(H.hash_expand_insert_cuda), 1, "hash_expand_insert_kernel", 10, reset)
+    plain = cuda_ms(insert(H.hash_expand_insert_ref), 2, reset)
+    # B's entries and cum read once; of A, the (row, value) of every entry
+    # in a column that B's block reaches, and that column's start and end;
+    # per distinct key its slot's key and value read and written
+    cnt = x.cum - torch.cat([x.cum.new_zeros(1), x.cum[:-1]])
+    touched = torch.unique(x.b_cols[cnt > 0]).long()
+    a_needed = int((x.colptr[touched + 1] - x.colptr[touched]).sum())
+    nbytes = 8 * a_needed + 8 * touched.numel() + 16 * x.cum.numel() + 16 * distinct
+    flops = min(int(total), nc * cc)
+    log(f"fused hash: {ms:.6f} ms device time per batch (one launch, {flops} partial "
+        f"products, {nc} chunks of {cc} before); plain {plain:.4f} ms; {nbytes} B per batch")
+    return max_err, ms, plain, nbytes, 2 * flops
+
+
+def hash_batch_split(A, B, grid, plan, hc, wall, batches):
+    """Where one batch of the hash run spends its time: the wall and the
+    device time of batch 0's fused step (selection, gathers, local multiply,
+    split, merge), beside the run's wall per batch."""
+    import torch
+
+    from repro_torch.core import summa3d
+
+    def step():
+        return summa3d.summa3d_fused_step(A, B, 0, grid=grid, num_batches=plan.num_batches,
+                                          sel_cap=plan.sel_cap, caps=plan.caps, hashc=hc)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 100
+    log(f"hash n=2^20: {wall / batches * 1e3:.3f} ms wall per batch in the run; batch 0's "
+        f"step alone {step_ms:.3f} ms wall (mean of 10)")
+    profile_top("hash n=2^20 batch 0, fused step", step)
+
+
+def check_segment_reduce(a_cat, b_cat, caps):
+    """The segment reduction on the ESC run's batch 0 (the expansion's
+    compress, captured from one spgemm_esc call) against its plain version,
+    twice bit-identical; then the ESC multiply of that batch twice, which
+    must give the same bits. Returns (max abs err, ms, plain ms, library ms,
+    bytes, ops)."""
+    import torch
+
+    from repro_torch.core import local_spgemm
+    from repro_torch.kernels import segment_reduce as S
+
+    captured = []
+    orig = S.segment_reduce
+    S.segment_reduce = lambda v, o, k: (captured.append((v, o, k)), orig(v, o, k))[1]
+    try:
+        runs = [local_spgemm.spgemm_esc(a_cat, b_cat, caps.d_cap, caps.flops_cap)
+                for _ in range(2)]
+    finally:
+        S.segment_reduce = orig
+    (c1, o1), (c2, o2) = runs
+    same = all(torch.equal(getattr(c1, f), getattr(c2, f)) for f in ("rows", "cols", "nnz"))
+    if not (same and int(o1) == int(o2) == 0
+            and torch.equal(c1.vals.view(torch.int32), c2.vals.view(torch.int32))):
+        raise AssertionError("esc batch 0: two runs differ (or overflowed)")
+    log(f"esc n=2^20 batch 0: two runs bit-identical, nnz {int(c1.nnz)}")
+    vals, offsets, kind = max(captured, key=lambda c: c[0].numel())
+    got = S.segment_reduce_cuda(vals, offsets, kind)
+    again = S.segment_reduce_cuda(vals, offsets, kind)
+    want = S.segment_reduce_ref(vals, offsets, kind)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
+        raise AssertionError(f"segment_reduce: kernel differs from plain, max abs err {err}")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("segment_reduce: two calls differ")
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    num = offsets.numel() - 1
+    ms = device_ms(lambda: S.segment_reduce_cuda(vals, offsets, kind), 1,
+                   "segment_reduce_kernel", 10)
+    plain = cuda_ms(lambda: S.segment_reduce_ref(vals, offsets, kind), 3)
+    data, offs = vals[lo:hi], (offsets - lo).long()
+    lib = library_device_ms("torch.segment_reduce",
+                            lambda: torch.segment_reduce(data, "sum", offsets=offs, unsafe=True))
+    # what it replaced: scatter_reduce_ of every slot, padding into one discard slot
+    seg = (torch.searchsorted(offsets, torch.arange(vals.numel(), dtype=torch.int32,
+                                                    device=vals.device), right=True) - 1).long()
+    seg = torch.where((seg >= 0) & (seg < num), seg, torch.full_like(seg, num))
+    old = library_device_ms(
+        "scatter_reduce_ (discard slot)",
+        lambda: torch.zeros(num + 1, device=vals.device).scatter_reduce_(0, seg, vals, "sum"))
+    log(f"segment_reduce: {num} runs over {hi - lo} of {vals.numel()} slots, {ms:.6f} ms "
+        f"device time; plain {plain:.4f} ms; torch.segment_reduce {lib:.6f} ms; "
+        f"scatter_reduce_ {old:.6f} ms; max abs err {err:.3g}")
+    return err, ms, plain, lib, 4 * (hi - lo) + 8 * num + 4, hi - lo
+
+
 def library_operands(a_cat, b_cat):
     """Batch 0's gathered A and selected B as coalesced torch sparse COO
     tensors (for the torch.sparse.mm yardstick), and the count of matching
@@ -510,6 +692,8 @@ def ops_phase(a_cat, b_cat, kb, bin_of_k):
         ref_sums.index_add_(0, inv, vals[:ln][perm].double())
         if not torch.allclose(sums, ref_sums, rtol=1e-12, atol=0):
             raise AssertionError(f"ops: sort_pairs per-key sums differ at {ln}")
+        if ln > big and not torch.equal(sv, vals[:ln][torch.sort(keys[:ln], stable=True)[1]]):
+            raise AssertionError(f"ops: routed sort_pairs values differ from a stable sort at {ln}")
         if ln <= big:
             plain_k, plain_v = So.sort_pairs(keys[:ln].cpu(), vals[:ln].cpu())  # the plain network
             sort_err = max(sort_err, float((sv.cpu() - plain_v).abs().max()),
@@ -518,7 +702,7 @@ def ops_phase(a_cat, b_cat, kb, bin_of_k):
                 raise AssertionError(f"ops: sort_pairs values differ from the plain network "
                                      f"at {ln}")
         log(f"sort_pairs {ln}: keys equal to torch.sort's, {uniq.numel()} distinct, values "
-            f"{'bit-identical to the plain network' if ln <= big else 'per-key sums equal'}")
+            f"{'bit-identical to the plain network' if ln <= big else 'as a stable sort'}")
     k16, v16 = keys[:big].contiguous(), vals[:big].contiguous()
 
     def sorts():
@@ -623,17 +807,18 @@ def run_mcl(fn, a, grid, cfg, label):
     (final, history, wall s, peak bytes, launches)."""
     import torch
 
-    from repro_torch.kernels import col_prune, spgemm_binned, spgemm_hash
+    from repro_torch.kernels import col_prune, segment_reduce, spgemm_binned, spgemm_hash
     from repro_torch.kernels.densify_kernel import densify_cuda
     from repro_torch.kernels.spmm_kernel import spmm_cuda
     from repro_torch.sparse_apps import mcl
 
     wrappers = {
-        "hash_insert": spgemm_hash.hash_insert_cuda,
+        "hash_insert": spgemm_hash.hash_expand_insert_cuda,
         "spgemm_paired_binned": spgemm_binned.spgemm_paired_binned_cuda,
         "col_topk_bounds": col_prune.col_topk_bounds_cuda,
         "spmm": spmm_cuda,
         "densify": densify_cuda,
+        "segment_reduce": segment_reduce.segment_reduce_cuda,
     }
     for w in wrappers.values():
         w.launches = 0
@@ -653,6 +838,27 @@ def run_mcl(fn, a, grid, cfg, label):
             f"path {h['local_path']}, retries {h['retries']}, replans {h['replans']}, "
             f"host bytes {h['host_bytes']}, {h['wall_ms']:.1f} ms")
     return final, hist, wall, peak, launches
+
+
+def same_bits(fin, hist, fin2, hist2) -> bool:
+    """Two MCL results are the same bits: final matrices field by field and
+    every iteration's nnz and chaos."""
+    import torch
+
+    fields = all(torch.equal(getattr(fin, f), getattr(fin2, f)) for f in ("rows", "cols", "nnz"))
+    vals = torch.equal(fin.vals.view(torch.int32), fin2.vals.view(torch.int32))
+    traj = [(h["nnz"], h["chaos"]) for h in hist] == [(h["nnz"], h["chaos"]) for h in hist2]
+    return fields and vals and traj
+
+
+def check_repeats(label, fn, a, grid, cfg, first):
+    """Run an MCL loop once more and hold it to ``first`` = (final,
+    history) bit for bit; raises if they differ."""
+    fin2, hist2, wall2, _, _ = run_mcl(fn, a, grid, cfg, f"{label}, second run")
+    if not same_bits(*first, fin2, hist2):
+        raise AssertionError(f"{label}: a second run differs: "
+                             f"{[h['nnz'] for h in first[1]]} vs {[h['nnz'] for h in hist2]}")
+    log(f"{label}: second run bit-identical ({wall2:.2f} s)")
 
 
 def profile_top(label, fn, rows=8):
@@ -722,6 +928,11 @@ def mcl_sparse_phase(grid):
     profile_mcl_batch(a, grid, cfg)
     fin_d, hist_d, wall_d, peak_d, launches = run_mcl(
         mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop")
+    fin_2, hist_2, wall_2, _, _ = run_mcl(
+        mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop, second run")
+    log(f"mcl sparse n=2^18: device loop trajectories {[h['nnz'] for h in hist_d]} and "
+        f"{[h['nnz'] for h in hist_2]}; bit-identical: {same_bits(fin_d, hist_d, fin_2, hist_2)}")
+    del fin_2
     fin_h, hist_h, wall_h, peak_h, _ = run_mcl(
         mcl.mcl_iterate_host, a, grid, cfg, "mcl sparse n=2^18, host loop")
     compare_loops("mcl sparse n=2^18 device vs host", hist_d, hist_h,
@@ -760,9 +971,20 @@ def mcl_dense_phase(grid, a, cfg):
 
     fin_d, hist_d, _, _, launches = run_mcl(
         mcl.mcl_iterate, a, grid, cfg, "mcl dense n=2^14, device loop")
+    check_repeats("mcl dense n=2^14, device loop", mcl.mcl_iterate, a, grid, cfg,
+                  (fin_d, hist_d))
     fin_s, hist_s, _, _, _ = run_mcl(
         mcl.mcl_iterate, a, grid, dataclasses.replace(cfg, path="sparse"),
         "mcl dense n=2^14, sparse device loop")
+    # the binned multiply that "auto" plans adds with atomics: the repeat
+    # runs the sparse loop on the ESC multiply, whose sums are order-fixed
+    esc = dataclasses.replace(cfg, path="sparse", local_path="esc")
+    fin_e, hist_e, _, _, _ = run_mcl(mcl.mcl_iterate, a, grid, esc,
+                                     "mcl n=2^14, sparse device loop (esc)")
+    check_repeats("mcl n=2^14, sparse device loop (esc)", mcl.mcl_iterate, a, grid, esc,
+                  (fin_e, hist_e))
+    compare_loops("mcl n=2^14 sparse esc vs binned", hist_e, hist_s, partition(fin_e, N_DEFAULT),
+                  partition(fin_s, N_DEFAULT))
     fin_h, hist_h, _, _, _ = run_mcl(
         mcl.mcl_iterate_host, a, grid, cfg, "mcl dense n=2^14, host loop")
     lab = partition(fin_d, N_DEFAULT)
@@ -803,6 +1025,24 @@ def dense_batch0(a, grid, cfg):
     return a_cat, b_cat, x
 
 
+def spmm_reuse(rows, cols, live, k, block_rows=(16, 32, 64, 128)):
+    """How often the SpMM kernel can reuse a staged B stripe on these
+    operands: per block of R rows, nnz / distinct columns, and (at each R)
+    the share of entries whose column occurs twice or more in the block and
+    the most such columns in one block (the stripes it would stage)."""
+    import torch
+
+    r, c = rows[live].long(), cols[live].long()
+    for rb in block_rows:
+        keys, counts = torch.unique((r // rb) * k + c, return_counts=True)
+        multi = counts >= 2
+        per_block = torch.bincount(keys[multi] // k)
+        log(f"spmm reuse, {rb} rows a block: nnz / distinct columns "
+            f"{r.numel() / keys.numel():.3f}; columns used twice or more carry "
+            f"{float(counts[multi].sum()) / r.numel():.4f} of the entries, at most "
+            f"{int(per_block.max())} such columns in a block")
+
+
 def check_dense_kernels(a_cat, b_cat, x, k):
     """Phase 6: col_prune, SpMM and densify against their plain versions and
     a library yardstick. Returns {name: (max abs err, ms, plain ms,
@@ -828,27 +1068,39 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     out["col_prune"] = (0.0, ms, plain, lib, xm * xn * 4 + 8 * xn,
                         2 * P.THRESH_ITERS * xm * xn)
 
-    # SpMM: A's live entries (row, col, val) times the dense selected B
+    # SpMM: A's live entries (row, col, val) times the dense selected B, in
+    # f32 and with bf16 values and B (both sum in f32); two calls bit-identical
     valid = a_cat.valid_mask()
     rows = torch.where(valid, a_cat.rows, torch.full_like(a_cat.rows, m))
     vals = torch.where(valid, a_cat.vals, torch.zeros_like(a_cat.vals))
     bd = b_cat.to_dense()
-    args = (rows, a_cat.cols, vals, bd, m)
-    got, want = spmm_cuda(*args), spmm_ref(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
-        raise AssertionError(f"spmm: kernel differs from plain, max abs err {err}")
     live = (rows < m) & (a_cat.cols < kk)
     nnz_a = int(live.sum())
+    spmm_reuse(rows, a_cat.cols, live, kk)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = (rows, a_cat.cols, vals.to(dtype), bd.to(dtype), m)
+        got, again, want = spmm_cuda(*args), spmm_cuda(*args), spmm_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
+            raise AssertionError(f"spmm {dtype}: kernel differs from plain, max abs err {err}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"spmm {dtype}: two calls differ")
+        ms = device_ms(lambda: spmm_cuda(*args), 1, "spmm_tile_kernel", 5)
+        nbytes = 12 * nnz_a + (kk * n) * bd.to(dtype).element_size() + 4 * m * n
+        log(f"spmm {dtype}: {ms:.6f} ms device time, two calls bit-identical, max abs err "
+            f"{err:.3g} (plain), bound {bound_ms(nbytes, 2 * nnz_a * n)[0]:.6f} ms")
+    plain = cuda_ms(lambda: spmm_ref(*args), 3)
     a_csr = torch.sparse_coo_tensor(
         torch.stack([rows[live].long(), a_cat.cols[live].long()]), vals[live], (m, kk),
         check_invariants=False,
     ).coalesce().to_sparse_csr()
-    ms = device_ms(lambda: spmm_cuda(*args), 1, "spmm_rows_kernel", 5)
-    plain = cuda_ms(lambda: spmm_ref(*args), 3)
     lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_csr, bd))
-    out["spmm"] = (err, ms, plain, lib, 12 * a_cat.cap + 4 * (kk * n + m * n), 2 * nnz_a * n)
+    lib_c = torch.sparse.mm(a_csr, bd)
+    lib_again = torch.sparse.mm(a_csr, bd)
+    log(f"spmm: torch.sparse.mm max abs diff from the kernel {float((lib_c - got).abs().max()):.3g}, "
+        f"bit-identical between calls: {torch.equal(lib_c, lib_again)}")
+    out["spmm"] = (err, ms, plain, lib, 12 * nnz_a + 4 * (kk * n + m * n), 2 * nnz_a * n)
 
     # densify: the selected B's entries into a (k, n) tile, duplicates summed
     args = (b_cat.rows, b_cat.cols, b_cat.vals, kk, n)
@@ -884,7 +1136,8 @@ def main() -> int:
     from repro_torch.core.distsparse import scatter_to_grid
     from repro_torch.core.grid import make_grid
     from repro_torch.core.specs import PlanSpec
-    from repro_torch.kernels import _build, spgemm_binned as Bn, spgemm_hash as H
+    from repro_torch.kernels import _build, segment_reduce as S, spgemm_binned as Bn
+    from repro_torch.kernels import spgemm_hash as H
 
     # 1. card
     smi = subprocess.run(
@@ -935,20 +1188,21 @@ def main() -> int:
     budget14 = 48 * int(a14.nnz)
     ref14 = scipy_square(a14)
 
-    runs, launches = {}, {}
+    runs, launches, walls = {}, {}, {}
+    counted = {"hash": H.hash_expand_insert_cuda, "hash_chunk": H.hash_insert_cuda,
+               "binned": Bn.spgemm_paired_binned_cuda, "segment_reduce": S.segment_reduce_cuda}
     for label, (AA, BB, bud, lp, n) in {
         "hash n=2^20": (A, B, budget, "hash", N_FULL),
         "esc n=2^20": (A, B, budget, "esc", N_FULL),
         "auto n=2^14": (A14, B14, budget14, "auto", N_DEFAULT),
     }.items():
-        H.hash_insert_cuda.launches = 0
-        Bn.spgemm_paired_binned_cuda.launches = 0
+        for w in counted.values():
+            w.launches = 0
         res, wall, peak, parts = run_multiply(AA, BB, grid, bud, lp)
-        launches[label] = {"hash": H.hash_insert_cuda.launches,
-                           "binned": Bn.spgemm_paired_binned_cuda.launches}
+        launches[label] = {name: w.launches for name, w in counted.items()}
         err = check_product(parts, ref_full if n == N_FULL else ref14, n)
         del parts
-        runs[label] = res
+        runs[label], walls[label] = res, wall
         log(f"{label}: path {res.local_path}, b={res.plan.num_batches}, "
             f"retries {res.num_retries}, wall {wall:.2f} s, peak "
             f"{peak / 2**30:.3f} GiB, max rel err {err:.3g}, launches "
@@ -956,9 +1210,15 @@ def main() -> int:
             f"hash_caps {res.hash_caps}, binned_caps {res.binned_caps}")
     hash_launches = launches["hash n=2^20"]["hash"]
     binned_launches = launches["auto n=2^14"]["binned"]
-    rh, rb = runs["hash n=2^20"], runs["auto n=2^14"]
-    if not (rh.plan.num_batches >= 1024 and hash_launches > 0):
-        raise AssertionError("hash run: needs b >= 1024 and hash launches > 0")
+    rh, resc, rb = runs["hash n=2^20"], runs["esc n=2^20"], runs["auto n=2^14"]
+    if not (rh.plan.num_batches >= 1024 and rh.num_retries == 0
+            and hash_launches == rh.plan.num_batches
+            and launches["hash n=2^20"]["hash_chunk"] == 0):
+        raise AssertionError(f"hash run: needs b >= 1024 and exactly one fused hash launch "
+                             f"per batch, no one-chunk launches: {launches['hash n=2^20']}")
+    if launches["esc n=2^20"]["segment_reduce"] < resc.plan.num_batches:
+        raise AssertionError(f"esc run: the segment reduction must sum every batch: "
+                             f"{launches['esc n=2^20']}")
     if not (rb.local_path == "binned" and rb.plan.num_batches == 16 and binned_launches > 0):
         raise AssertionError("default run: must plan binned with b = 16 and launch it")
 
@@ -966,13 +1226,22 @@ def main() -> int:
     a_cat, b_cat = batch0_operands(A, B, grid, rh.plan)
     h_err, h_ms, h_plain, h_bytes, h_adds = check_hash_kernel(a_cat, b_cat, rh.hash_caps)
     h_bound, h_by = bound_ms(h_bytes, h_adds)
+    log(f"hash insert, one chunk: {h_ms:.6f} ms/launch (plain {h_plain:.4f}), bound "
+        f"{h_bound:.7f} ms ({h_by}), {100 * h_bound / h_ms:.2f} % of bound")
+    f_err, f_ms, f_plain, f_bytes, f_ops = check_fused_hash(a_cat, b_cat, rh.hash_caps)
+    f_bound, f_by = bound_ms(f_bytes, f_ops)
+    log(f"hash insert, fused: {f_ms:.6f} ms per batch (plain {f_plain:.4f}), bound "
+        f"{f_bound:.7f} ms ({f_by}), {100 * f_bound / f_ms:.2f} % of bound")
+    hash_batch_split(A, B, grid, rh.plan, rh.hash_caps, walls["hash n=2^20"],
+                     rh.plan.num_batches)
+    a_cat, b_cat = batch0_operands(A, B, grid, resc.plan)
+    seg = check_segment_reduce(a_cat, b_cat, resc.plan.caps)
+    seg_launches = launches["esc n=2^20"]["segment_reduce"]
     a_cat, b_cat = batch0_operands(A14, B14, grid, rb.plan)
     bin_of_k = torch.as_tensor(rb.plan.kbin.bin_of_k, device=a_cat.device)
     b_err, b_ms, b_plain, b_lib, b_bytes, b_flops = check_binned_kernel(
         a_cat, b_cat, rb.binned_caps, bin_of_k)
     b_bound, b_by = bound_ms(b_bytes, b_flops)
-    log(f"hash insert: {h_ms:.6f} ms/launch (plain {h_plain:.4f}), bound {h_bound:.7f} ms "
-        f"({h_by}), {100 * h_bound / h_ms:.2f} % of bound")
     log(f"binned: {b_ms:.6f} ms (plain {b_plain:.4f}, torch.sparse.mm {b_lib:.4f}), "
         f"bound {b_bound:.6f} ms ({b_by}), {100 * b_bound / b_ms:.2f} % of bound")
 
@@ -981,7 +1250,7 @@ def main() -> int:
     api = ops_phase(a_cat, b_cat, rb.binned_caps, bin_of_k)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
-    del a, A, B, a14, A14, B14, a_cat, b_cat, runs, rh, rb, ref_full, ref14
+    del a, A, B, a14, A14, B14, a_cat, b_cat, runs, rh, resc, rb, ref_full, ref14
     torch.cuda.empty_cache()
 
     # 6. the dense-path kernels against their plain versions
@@ -997,12 +1266,21 @@ def main() -> int:
     dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
 
+    seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
+    seg_bound, seg_by = bound_ms(seg_bytes, seg_ops)
     kernels = [
         {"name": "hash_insert", "route": "cuda",
          "source": "src/repro_torch/csrc/spgemm_hash.cu",
          "replaces": "src/repro/kernels/spgemm_hash.py:159",
-         "launches": hash_launches, "max_abs_err": h_err, "ms": h_ms,
-         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by, "library_ms": None},
+         "launches": hash_launches, "max_abs_err": max(h_err, f_err), "ms": f_ms,
+         "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
+         "per": "batch: one fused expansion + insert launch"},
+        {"name": "segment_reduce", "route": "cuda",
+         "source": "src/repro_torch/csrc/segment_reduce.cu",
+         "replaces": "src/repro/core/sortkeys.py:94",
+         "launches": seg_launches, "max_abs_err": seg_err, "ms": seg_ms,
+         "plain_ms": seg_plain, "bound_ms": seg_bound, "bound_by": seg_by,
+         "library_ms": seg_lib},
         {"name": "spgemm_paired_binned", "route": "cuda",
          "source": "src/repro_torch/csrc/spgemm_binned.cu",
          "replaces": "src/repro/kernels/spgemm_binned.py:119",

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import semiring as sr
+from . import sortkeys
 from .grid import LAYER_AX, ROW_AX, Grid
 from .sparse import SparseCOO, empty, from_numpy_coo
 
@@ -215,13 +216,18 @@ def local_col_reduce(
     """Per-column reduction of one tile's entries: reduce ``vals`` by local
     column (padding goes to a discard segment ``tn``), then combine over
     ``axes`` of ``grid`` (``psum`` for sum, ``pmax`` for max). Returns
-    f32[tn]. ``op="max"`` treats empty columns as 0 (MCL values are
-    nonnegative)."""
+    ``vals.dtype[tn]``. ``op="max"`` treats empty columns as 0 (MCL values
+    are nonnegative). A float sum runs in a fixed order
+    (``sortkeys.segment_reduce``), so it gives the same bits on every run;
+    max and integer sums are exact in any order."""
     if op not in ("sum", "max"):
         raise ValueError(op)
     segids = torch.where(valid, cols, torch.full_like(cols, tn))
     v = torch.where(valid, vals, torch.zeros_like(vals))
-    out = sr.scatter_reduce(v, segids, tn + 1, op)[:tn]
+    if op == "sum" and v.is_floating_point():
+        out = sortkeys.segment_reduce(v, segids, tn, "sum")
+    else:
+        out = sr.scatter_reduce(v, segids, tn + 1, op)[:tn]
     if op == "max":
         out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
     combine = grid.psum if op == "sum" else grid.pmax

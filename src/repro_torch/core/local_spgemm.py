@@ -6,9 +6,10 @@ sorted C, overflow count) — so the batch plan can pick between them:
   * ``spgemm_esc`` — expand–sort–compress: every partial product is
     materialized (O(flops) scratch), then one packed-key sort + compress.
     Any semiring.
-  * ``spgemm_hash`` — the expansion is enumerated in reused chunks and each
-    chunk is inserted into an open-addressing table (``kernels.spgemm_hash``):
-    O(table + chunk) scratch. Any semiring.
+  * ``spgemm_hash`` — every partial product is inserted into an
+    open-addressing table as it is formed (``kernels.spgemm_hash``: one
+    launch per batch on the card, chunk by chunk on the CPU): O(table)
+    scratch on the card, O(table + chunk) on the CPU. Any semiring.
   * ``spgemm_kbinned`` — both operands counting-sorted into contraction
     bins, only matching bins paired into a dense f32 block
     (``kernels.spgemm_binned``), then sparsified. plus_times only.
@@ -50,10 +51,11 @@ def _colptr(a_csc: SparseCOO) -> Tuple[Tensor, Tensor]:
 def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -> Tensor:
     """Sparse A times dense B.
 
-    On the card this is the SpMM kernel (``kernels.spmm_kernel``), which sums:
-    any other semiring raises there. CPU tensors take the semiring-generic
-    plain version: gather B's rows by A's column index, multiply, and
-    segment-reduce by A's row.
+    On the card this is the SpMM kernel (``kernels.spmm_kernel``), which sums
+    in f32: any other semiring raises there. CPU tensors take the
+    semiring-generic plain version: gather B's rows by A's column index,
+    multiply, and segment-reduce by A's row. Either way C has the dtype of
+    A's values times B's (bfloat16 when both are), as the reference's.
     """
     m, k = a.shape
     assert b_dense.shape[0] == k, (a.shape, tuple(b_dense.shape))
@@ -63,7 +65,8 @@ def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -
             raise ValueError(f"the SpMM kernel computes plus_times, got {semiring.name}")
         rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
         vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
-        return spmm_entries(rows, a.cols, vals, b_dense, m)
+        out = spmm_entries(rows, a.cols, vals, b_dense, m)
+        return out.to(torch.result_type(a.vals, b_dense))
     n = b_dense.shape[1]
     # pad B with a zero row for sentinel column indices
     b_pad = torch.cat([b_dense, torch.zeros((1, n), dtype=b_dense.dtype)], 0)
@@ -202,6 +205,27 @@ def _coalesce_semiring(x: SparseCOO, valid: Tensor, new_cap: int, semiring: sr.S
 # ---------------------------------------------------------------------------
 # Hash-accumulator SpGEMM
 # ---------------------------------------------------------------------------
+def hash_expansion(a: SparseCOO, b: SparseCOO) -> Tuple[hashkern.Expansion, Tensor]:
+    """A·B's expansion as ``kernels.spgemm_hash.Expansion`` (A in CSC
+    order, B's entries as (j, k), the inclusive prefix of products per B
+    entry) and its total flops. B entries whose contraction index lies
+    outside [0, k) have no products (the reference's clamped gathers give
+    the same for indices at or above k)."""
+    k = a.shape[1]
+    _, n = b.shape
+    a_csc = a.sort_colmajor()
+    bt = b.transpose()  # entries (j, k): rows=j, cols=k
+    ccount_pad, colptr_pad = _colptr(a_csc)
+    in_k = bt.valid_mask() & (bt.cols >= 0) & (bt.cols < k)
+    bk = torch.where(in_k, bt.cols, torch.full_like(bt.cols, k)).long()
+    cnt = torch.where(in_k, ccount_pad[bk], torch.zeros_like(bt.cols))
+    cum = torch.cumsum(cnt, 0, dtype=torch.int32)  # inclusive prefix
+    total = cum[-1] if bt.cap > 0 else torch.zeros((), dtype=torch.int32, device=a.device)
+    x = hashkern.Expansion(a_csc.rows, a_csc.vals, colptr_pad, bt.rows, bt.cols, bt.vals,
+                           cum, n)
+    return x, total
+
+
 def hash_chunks(
     a: SparseCOO,
     b: SparseCOO,
@@ -211,33 +235,14 @@ def hash_chunks(
 ) -> Tuple[Tensor, Iterator[Tuple[Tensor, Tensor, Tensor]]]:
     """The expansion of A·B in ``num_chunks`` chunks of ``chunk_cap``
     partial products: returns (total flops, iterator over chunks), a chunk
-    being (packed row-major keys i32, values, valid) — what ``spgemm_hash``
-    inserts, one chunk at a time, so only one chunk is ever resident."""
-    _, n = b.shape
-    dev = a.device
-    a_csc = a.sort_colmajor()
-    bt = b.transpose()  # entries (j, k): rows=j, cols=k
-    ccount_pad, colptr_pad = _colptr(a_csc)
-    cnt = torch.where(bt.valid_mask(), ccount_pad[bt.cols.long()], torch.zeros_like(bt.cols))
-    cum = torch.cumsum(cnt, 0, dtype=torch.int32)  # inclusive prefix
-    if bt.cap > 0:
-        total = cum[-1]
-    else:
-        total = torch.zeros((), dtype=torch.int32, device=dev)
-    offs = torch.arange(chunk_cap, dtype=torch.int32, device=dev)
+    being (packed row-major keys i32, values, valid) — what the reference's
+    chunk loop inserts, one ``hash_insert`` at a time."""
+    x, total = hash_expansion(a, b)
+    offs = torch.arange(chunk_cap, dtype=torch.int32, device=a.device)
 
     def chunks():
         for c in range(num_chunks):
-            # expansion slots [c·chunk_cap, (c+1)·chunk_cap): the B entry of
-            # slot e is the first t with cum[t] > e
-            e = c * chunk_cap + offs
-            t = torch.clamp(torch.searchsorted(cum, e, right=True), 0, max(bt.cap - 1, 0))
-            within = e - (cum[t] - cnt[t])
-            ai = torch.clamp(colptr_pad[bt.cols[t].long()] + within, 0, a_csc.cap - 1).long()
-            vals = semiring.mul(a_csc.vals[ai], bt.vals[t])
-            # B entry (k, j) -> output col j
-            key = sortkeys.pack_rowmajor(a_csc.rows[ai], bt.rows[t], n)
-            yield key, vals, e < total
+            yield hashkern.expand_slots(x, c * chunk_cap + offs, semiring.mul)
 
     return total, chunks()
 
@@ -254,11 +259,12 @@ def spgemm_hash(
 ) -> Tuple[SparseCOO, Tensor]:
     """Sparse × sparse → sparse via a hash accumulator — O(output) scratch.
 
-    The expansion is enumerated in ``num_chunks`` reused chunks of
-    ``chunk_cap`` partial products (``hash_chunks``); each chunk is one
-    ``hash_insert`` (one kernel launch on the card) into an open-addressing
-    table of ``table_cap`` slots, semiring-accumulating on probe hits.
-    Resident scratch is O(table_cap + chunk_cap) instead of O(flops).
+    The expansion's ``num_chunks · chunk_cap`` slots are inserted into an
+    open-addressing table of ``table_cap`` slots, semiring-accumulating on
+    probe hits (``kernels.spgemm_hash.hash_expand_insert``): on the card
+    one kernel launch forms and inserts every partial product of the
+    batch, with the table as the only scratch; on the CPU the plain
+    version inserts one chunk of ``chunk_cap`` at a time, as the reference.
 
     Output contract matches ``spgemm_esc``: (row-major-sorted C, overflow)
     where overflow counts dropped inserts, enumeration beyond
@@ -275,12 +281,9 @@ def spgemm_hash(
     table_val = torch.full((table_cap,), hashkern.table_init_val(add_kind),
                            dtype=a.vals.dtype, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    total, chunks = hash_chunks(a, b, chunk_cap, num_chunks, semiring)
-    for key, vals, valid in chunks:
-        hashkern.hash_insert(
-            table_key, table_val, key, vals, valid, dropped,
-            add_kind=add_kind, max_probes=max_probes,
-        )
+    x, total = hash_expansion(a, b)
+    hashkern.hash_expand_insert(table_key, table_val, dropped, x, chunk_cap, num_chunks,
+                                semiring=semiring, max_probes=max_probes)
     flop_overflow = torch.clamp(total - num_chunks * chunk_cap, min=0)
 
     # table → sorted COO: EMPTY (INT32_MAX) sorts after every real key and

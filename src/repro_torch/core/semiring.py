@@ -56,13 +56,16 @@ class Semiring:
     add_kind: str  # one of: "sum", "min", "max" — selects the reduction
     mul: Callable[[Tensor, Tensor], Tensor]
     zero: float  # additive identity (also the padding value)
+    # what ``mul`` computes, for kernels that form products themselves:
+    # "times", "min", "plus" or "pair" (always 1)
+    mul_kind: str = "times"
 
 
 PLUS_TIMES = Semiring("plus_times", "sum", lambda a, b: a * b, 0.0)
-OR_AND = Semiring("or_and", "max", torch.minimum, 0.0)  # on {0, 1}
-MIN_PLUS = Semiring("min_plus", "min", lambda a, b: a + b, math.inf)
+OR_AND = Semiring("or_and", "max", torch.minimum, 0.0, "min")  # on {0, 1}
+MIN_PLUS = Semiring("min_plus", "min", lambda a, b: a + b, math.inf, "plus")
 MAX_TIMES = Semiring("max_times", "max", lambda a, b: a * b, 0.0)  # nonneg values
-PLUS_PAIR = Semiring("plus_pair", "sum", lambda a, b: torch.ones_like(a), 0.0)
+PLUS_PAIR = Semiring("plus_pair", "sum", lambda a, b: torch.ones_like(a), 0.0, "pair")
 
 REGISTRY = {s.name: s for s in [PLUS_TIMES, OR_AND, MIN_PLUS, MAX_TIMES, PLUS_PAIR]}
 

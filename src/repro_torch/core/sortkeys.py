@@ -17,7 +17,11 @@ so the grouping runs through one of three engines, picked per shape:
     a stable int64 packed key, which orders entries exactly as the two-key
     (row, col) lexsort does.
 
-All three emit identical (keys, values, nnz, overflow).
+All three emit identical (keys, values, nnz, overflow). Every engine
+reduces a slot's values over its contiguous run of sorted entries
+(``segment_reduce``, the segment-reduce kernel on the card), in slot
+order: no atomics, so a sum gives the same bits on every run, and padding
+entries are never read.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Tuple
 
 import torch
 
-from .semiring import scatter_reduce
+from ..kernels import segment_reduce as segkern
 
 Tensor = torch.Tensor
 
@@ -83,13 +87,33 @@ def choose_engine(m: int, n: int, cap: int, engine: str = "auto") -> str:
 
 
 # ---------------------------------------------------------------------------
-# value reduction into output slots (shared by all engines)
+# order-fixed reduction into output slots (shared by all engines)
 # ---------------------------------------------------------------------------
-def _reduce_to_slots(vals: Tensor, seg: Tensor, new_cap: int, add_kind: str) -> Tensor:
-    """Reduce vals by slot id ``seg``; slot new_cap is the discard bucket."""
-    if add_kind == "sum":
-        vals = torch.where(seg < new_cap, vals, torch.zeros_like(vals))
-    return scatter_reduce(vals, seg, new_cap + 1, add_kind)[:new_cap]
+def segment_offsets(sorted_ids: Tensor, num_segments: int) -> Tensor:
+    """int32 run boundaries of non-decreasing segment ids: run s is
+    ``[offsets[s], offsets[s + 1])``; ids outside [0, num_segments) fall
+    before the first run or past the last."""
+    bounds = torch.arange(num_segments + 1, dtype=sorted_ids.dtype, device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids, bounds, out_int32=True)
+
+
+def segment_reduce(vals: Tensor, segids: Tensor, num_segments: int, add_kind: str) -> Tensor:
+    """Reduce 1-D ``vals`` by segment id into ``num_segments`` slots (ids
+    outside [0, num_segments) are dropped; empty slots hold the identity),
+    in a fixed order: entries are grouped by id with a stable sort and each
+    slot is reduced over its run by ``kernels.segment_reduce``. The same
+    inputs give the same bits on every run, on the card as on the CPU."""
+    segids, order = torch.sort(segids, stable=True)
+    return segkern.segment_reduce(vals[order], segment_offsets(segids, num_segments), add_kind)
+
+
+def _run_heads(x: Tensor, offsets: Tensor, fill: int) -> Tensor:
+    """``x`` at the first entry of each run, ``fill`` for an empty run: the
+    run's minimum when ``x`` ascends within runs."""
+    if x.numel() == 0:
+        return torch.full((offsets.numel() - 1,), fill, dtype=x.dtype, device=x.device)
+    head = x[torch.clamp(offsets[:-1], max=x.numel() - 1).long()]
+    return torch.where(offsets[1:] > offsets[:-1], head, torch.full_like(head, fill))
 
 
 def _scatter_min_keys(fill: int, new_cap: int, seg: Tensor, keys: Tensor) -> Tensor:
@@ -133,9 +157,11 @@ def compress_sorted_keys(
         new_key[1:] = keys[1:] != keys[:-1]
     new_key = new_key & vmask
     seg, total = _segments(new_key)
+    # slot ids ascend: sentinels and overflow go to new_cap, which sorts last
     seg = torch.where(vmask & (seg < new_cap), seg, torch.full_like(seg, new_cap))
-    out_key = _scatter_min_keys(sent, new_cap, seg, keys)
-    out_vals = _reduce_to_slots(vals, seg, new_cap, add_kind)
+    offsets = segment_offsets(seg, new_cap)
+    out_key = _run_heads(keys, offsets, sent)
+    out_vals = segkern.segment_reduce(vals, offsets, add_kind)
     return _finalize(out_key, out_vals, total, new_cap, sent, vals.dtype)
 
 
@@ -154,7 +180,7 @@ def _coalesce_bucket(key, valid, vals, nbuckets, sent, new_cap, add_kind):
     slot_of_bucket, total = _segments(occ > 0)
     slot = slot_of_bucket[torch.clamp(keyc, 0, nbuckets - 1)]
     seg = torch.where(valid & (slot < new_cap), slot, torch.full_like(slot, new_cap))
-    out_vals = _reduce_to_slots(vals, seg, new_cap, add_kind)
+    out_vals = segment_reduce(vals, seg, new_cap, add_kind)  # slots in entry order
     bdest = torch.where(
         (occ > 0) & (slot_of_bucket < new_cap), slot_of_bucket,
         torch.full_like(slot_of_bucket, new_cap),
@@ -179,9 +205,10 @@ def _coalesce_lexsort(rows, cols, vals, valid, m, n, new_cap, add_kind):
     new_key = new_key & vmask
     seg, total = _segments(new_key)
     seg = torch.where(vmask & (seg < new_cap), seg, torch.full_like(seg, new_cap))
-    out_rows = _scatter_min_keys(m, new_cap, seg, rows)
-    out_cols = _scatter_min_keys(n, new_cap, seg, cols)
-    out_vals = _reduce_to_slots(vals, seg, new_cap, add_kind)
+    offsets = segment_offsets(seg, new_cap)
+    out_rows = _run_heads(rows, offsets, m)
+    out_cols = _run_heads(cols, offsets, n)
+    out_vals = segkern.segment_reduce(vals, offsets, add_kind)
     nnz = torch.clamp(total, max=new_cap).to(torch.int32)
     pad = torch.arange(new_cap, device=rows.device) >= nnz
     out_rows = torch.where(pad, torch.full_like(out_rows, m), out_rows)

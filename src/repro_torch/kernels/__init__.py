@@ -9,6 +9,8 @@ JAX package's oracle names (``ref``):
   col_prune      per-column top-k bisection
   spmm_kernel    sparse × dense
   densify_kernel COO → dense tile
+  segment_reduce order-fixed reduction of sorted runs (the packed-key
+                 engine's deterministic sum; no TPU kernel behind it)
 
 ``_build`` compiles ``csrc/`` with nvcc at first launch; importing builds
 nothing. The package exports the ``ops`` wrappers by name:

@@ -26,6 +26,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "spgemm_hash", "spgemm_binned", "col_prune", "spmm", "densify", "sort_engine", "spgemm_acc",
+    "segment_reduce",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

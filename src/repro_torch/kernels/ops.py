@@ -7,7 +7,7 @@ then calls its kernel module, which launches the Hopper kernel for CUDA
 tensors and runs the plain PyTorch version for CPU tensors: the tensors'
 device decides, there is no other switch.
 
-  spmm                  sparse (m×k) × dense (k×n) → dense f32
+  spmm                  sparse (m×k) × dense (k×n) → dense, B's dtype
   spgemm_paired         sparse × sparse → dense f32, sort-free pairing
   densify               padded COO → dense tile
   spgemm_paired_binned  sparse × sparse → (dense f32, overflow), k-binned
@@ -36,9 +36,10 @@ def _live_vals(a: "SparseCOO") -> Tensor:
 
 
 def spmm(a: "SparseCOO", b_dense: Tensor) -> Tensor:
-    """Sparse (m×k) × dense (k×n) → dense (m×n) f32."""
+    """Sparse (m×k) × dense (k×n) → dense (m×n), summed in f32 and returned
+    in B's dtype (float32 or bfloat16), as the reference's ``ops.spmm``."""
     m, _ = a.shape
-    return spmmkern.spmm(a.rows, a.cols, _live_vals(a), b_dense, m)
+    return spmmkern.spmm(a.rows, a.cols, _live_vals(a), b_dense, m).to(b_dense.dtype)
 
 
 def _inner(a: "SparseCOO", b: "SparseCOO") -> Tuple[int, int, int]:

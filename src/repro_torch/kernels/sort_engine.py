@@ -16,8 +16,9 @@ and the JAX package's network give bit-identical keys and values.
     for CPU tensors.
   * ``sort_pairs`` — any length: pads to the next power of two with the key
     dtype's max (sentinels sort last) and zero values, and slices back.
-    Above ``MAX_BITONIC_ELEMS`` it returns ``torch.sort`` plus the gathered
-    values, as the JAX package routes such sizes to ``lax.sort``.
+    Above ``MAX_BITONIC_ELEMS`` it returns a stable ``torch.sort`` plus the
+    gathered values, as the JAX package routes such sizes to the stable
+    ``lax.sort``: tied keys keep their values in input order.
 
 Contract: keys ascending, values carried along. The network is NOT stable:
 equal keys may permute their values (the tie rule is fixed, so the
@@ -130,7 +131,8 @@ def _next_pow2(x: int) -> int:
 
 def sort_pairs(keys: Tensor, vals: Tensor) -> Tuple[Tensor, Tensor]:
     """Single-key sort of (keys, vals): the bitonic network up to
-    ``MAX_BITONIC_ELEMS`` pairs, ``torch.sort`` above. Pads to the next power of
+    ``MAX_BITONIC_ELEMS`` pairs, a stable ``torch.sort`` above (as the
+    reference's ``lax.sort``, so tied keys keep their values' order). Pads to the next power of
     two with the key dtype's max (sentinels sort last) and slices back.
 
     On the network's path keys must be strictly below the dtype's max when
@@ -141,7 +143,7 @@ def sort_pairs(keys: Tensor, vals: Tensor) -> Tuple[Tensor, Tensor]:
     """
     (length,) = keys.shape
     if length > MAX_BITONIC_ELEMS:
-        skeys, perm = torch.sort(keys, stable=False)
+        skeys, perm = torch.sort(keys, stable=True)
         return skeys, vals[perm]
     padded = _next_pow2(length)
     if padded != length:

@@ -208,7 +208,7 @@ def _mcl_prune_sparse(
     for _ in range(THRESH_ITERS):
         mid = 0.5 * (lo + hi)
         over = valid & (v >= _pad(mid, 0.0)[segids])
-        take_hi = col_reduce(over.float(), valid, "sum") > k
+        take_hi = col_reduce(over.to(torch.int32), valid, "sum") > k  # exact counts
         lo = torch.where(take_hi, mid, lo)
         hi = torch.where(take_hi, hi, mid)
     tcol_pad = _pad(hi, float("inf"))[segids]
@@ -220,7 +220,7 @@ def _mcl_prune_sparse(
     # the rank within the tile plus the tied counts of the row blocks
     # before this one, so the quota is split consistently over the row group.
     greater = valid & (v >= thresh) & (v >= tcol_pad)
-    cnt_hi = col_reduce(greater.float(), valid, "sum").to(torch.int32)
+    cnt_hi = col_reduce(greater.to(torch.int32), valid, "sum")
     slots = torch.clamp(k - cnt_hi, min=0)  # (tn,) free slots per column
     tied = valid & (v >= thresh) & (v >= lo_pad) & (v < tcol_pad)
     # rank of each tied entry within its column, in slot order, in O(cap)

@@ -25,6 +25,7 @@ import torch
 from repro.core import local_spgemm as jlocal
 from repro.core import semiring as jsr
 from repro.core import sparse as jsparse
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels import spgemm_binned as jbinned
 from repro.kernels import spgemm_hash as jhash
@@ -38,6 +39,7 @@ from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import col_prune as tprune
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels.densify_kernel import densify, densify_cuda
 from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import sort_engine as tsort
@@ -170,6 +172,46 @@ def test_local_spmm_matches_jax(name):
     got = tlocal.spmm(a_t, torch.as_tensor(b), tsr.get(name)).numpy()
     want = np.asarray(jlocal.spmm(a_j, jnp.asarray(b), jsr.get(name)))
     assert_vals("sum" if name == "plus_times" else "min", got, want)
+
+
+# the JAX package's SpMM sweep (tests/test_kernels.py): shapes and dtypes
+SPMM_SHAPES = [(8, 8, 8), (16, 24, 8), (33, 17, 9), (64, 40, 128), (128, 128, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", SPMM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spmm_dtypes_match_jax(m, k, n, dtype):
+    """bf16 or f32 values and B, summed in f32: the plain version returns
+    f32 as ``spmm_pallas`` does, ``ops.spmm`` B's dtype as the reference's
+    ``ops.spmm`` (``ref.spmm_ref``), and ``local_spgemm.spmm`` the promoted
+    dtype as the reference's. Tolerance as the reference's own sweep: 1e-5
+    in f32, 2e-2 in bf16 (the output is rounded to 8 bits)."""
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    a_x = np.where(rng.random((m, k)) < 0.3, rng.standard_normal((m, k)), 0).astype(np.float32)
+    b_x = np.where(rng.random((k, n)) < 0.8, rng.standard_normal((k, n)), 0).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    a_j = jsparse.from_dense(jnp.asarray(a_x), cap=m * k // 2 + m)
+    a_t = tsparse.from_dense(torch.as_tensor(a_x), cap=m * k // 2 + m)
+    vals_j = jnp.where(a_j.valid_mask(), a_j.vals, 0).astype(jdt)
+    vals_t = torch.where(a_t.valid_mask(), a_t.vals, 0.0).to(tdt)
+    b_j, b_t = jnp.asarray(b_x).astype(jdt), torch.as_tensor(b_x).to(tdt)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+
+    got = spmm(a_t.rows, a_t.cols, vals_t, b_t, m)
+    want = spmm_pallas(a_j.rows, a_j.cols, vals_j, b_j, m,
+                       m_blk=16, n_blk=128, k_blk=16, nnz_blk=32, interpret=True)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+    a_tv = tsparse.SparseCOO(a_t.rows, a_t.cols, vals_t, a_t.nnz, a_t.shape)
+    a_jv = jsparse.SparseCOO(a_j.rows, a_j.cols, vals_j, a_j.nnz, a_j.shape)
+    got = tops.spmm(a_tv, b_t)
+    want = jops.spmm(a_jv, b_j)
+    assert str(got.dtype).split(".")[-1] == str(want.dtype) == dtype
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+    assert tlocal.spmm(a_tv, b_t).dtype == tdt
+    assert jlocal.spmm(a_jv, b_j).dtype == jdt
 
 
 def test_spmm_cuda_refuses_cpu_tensors():

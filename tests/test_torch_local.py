@@ -100,6 +100,69 @@ def test_spgemm_hash_matches_jax(kind, semiring, table_cap):
     _assert_same(tc, jc, semiring, (to, jo))
 
 
+ALL_SEMIRINGS = ["plus_times", "or_and", "min_plus", "max_times", "plus_pair"]
+
+
+def _ones(x):
+    """``x`` with every live value 1 (or_and's {0, 1} domain)."""
+    return jsparse.SparseCOO(x.rows, x.cols, jnp.where(x.valid_mask(), 1.0, 0.0).astype(x.vals.dtype),
+                             x.nnz, x.shape)
+
+
+@pytest.mark.parametrize("semiring", ALL_SEMIRINGS)
+@pytest.mark.parametrize("case", ["planned", "small_table", "flops_beyond", "outside_k"])
+def test_spgemm_hash_plain_matches_jax(semiring, case):
+    """The port's CPU hash path (the plain chunk loop of the fused kernel)
+    for every semiring product: a planned table (no drops), a table far too
+    small (both drop), flops beyond ``num_chunks · chunk_cap`` (both count
+    the same flop overflow) and B entries whose contraction index is k + 3
+    (no products on either side)."""
+    a, b = _inputs("rmat")
+    if semiring == "or_and":
+        a, b = _ones(a), _ones(b)
+    k = a.shape[1]
+    if case == "outside_k":
+        rows = np.asarray(b.rows).copy()
+        rows[: int(b.nnz)][::9] = k + 3
+        b = jsparse.SparseCOO(jnp.asarray(rows), b.cols, b.vals, b.nnz, b.shape)
+    kw = dict(out_cap=FLOPS_FITS, table_cap=16384, chunk_cap=512, num_chunks=FLOPS_FITS // 512,
+              max_probes=32)
+    if case == "small_table":
+        kw["table_cap"] = 128
+    elif case == "flops_beyond":
+        kw["num_chunks"] = 3
+    jc, jo = J_HASH(a, b, semiring=jsr.get(semiring), **kw)
+    tc, to = tlocal.spgemm_hash(_port(a), _port(b), semiring=tsr.get(semiring), **kw)
+    assert (int(jo) > 0) == (case in ("small_table", "flops_beyond"))
+    _assert_same(tc, jc, "plus_times" if semiring.startswith("plus") else semiring, (to, jo))
+
+
+@pytest.mark.parametrize("add_kind", ["sum", "min", "max"])
+@pytest.mark.parametrize("ids_sorted", [True, False], ids=["sorted", "unsorted"])
+def test_segment_reduce_matches_jax(add_kind, ids_sorted):
+    """The order-fixed reduction behind every engine's sum against
+    ``jax.ops.segment_{sum,min,max}``: ids past the last slot (the engines'
+    overflow and padding) and below 0 are dropped, empty slots hold the
+    identity."""
+    rng = np.random.default_rng(8)
+    num, cap = 40, 600
+    ids = rng.integers(-2, num + 5, cap).astype(np.int32)
+    ids[:50] = 7  # one long run
+    if ids_sorted:
+        ids = np.sort(ids)
+    vals = rng.uniform(-1.0, 1.0, cap).astype(np.float32)
+    got = tsort.segment_reduce(torch.as_tensor(vals), torch.as_tensor(ids), num, add_kind)
+    keep = (ids >= 0) & (ids < num)
+    seg = getattr(jax.ops, f"segment_{add_kind}")
+    want = seg(jnp.asarray(vals[keep]), jnp.asarray(ids[keep]), num_segments=num)
+    if add_kind == "sum":
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    else:
+        empty = np.bincount(ids[keep], minlength=num) == 0
+        assert np.all(np.isinf(got.numpy()[empty]))
+        np.testing.assert_array_equal(got.numpy()[~empty], np.asarray(want)[~empty])
+
+
 @pytest.mark.parametrize("kind", ["er", "rmat"])
 @pytest.mark.parametrize("num_bins", [1, 8])
 def test_spgemm_kbinned_matches_jax(kind, num_bins):

@@ -118,21 +118,21 @@ def test_spgemm_paired_binned_matches_jax(seeds, caps, overflow):
         _close(c_t, jops.spgemm_paired(a_j, b_j))
 
 
-@pytest.mark.parametrize("length", [500, tsort.MAX_BITONIC_ELEMS + 8],
-                         ids=["padded", "routed_to_torch_sort"])
-def test_sort_pairs_matches_jax(length):
+@pytest.mark.parametrize("length,ties", [
+    (500, False), (tsort.MAX_BITONIC_ELEMS + 8, False), (tsort.MAX_BITONIC_ELEMS + 8, True),
+], ids=["padded", "routed_to_torch_sort", "routed_heavy_ties"])
+def test_sort_pairs_matches_jax(length, ties):
+    """The network's values are bit-identical on the same padding; above
+    2^14 both packages route to a stable sort, so the values are identical
+    too, also when a few keys repeat thousands of times."""
     keys, vals = dup_keys(seed=length, n=length)
+    if ties:
+        keys = np.random.default_rng(3).integers(-2, 3, length).astype(np.int32)
     got_k, got_v = tops.sort_pairs(torch.as_tensor(keys), torch.as_tensor(vals))
     want_k, want_v = jsort.sort_pairs(jnp.asarray(keys), jnp.asarray(vals),
                                       use_pallas=True, interpret=True)
     np.testing.assert_array_equal(got_k.numpy(), np.asarray(want_k))
-    # per-key value sums: the sorts permute equal keys' values differently
-    _, inv = np.unique(got_k.numpy(), return_inverse=True)
-    sums_t = np.bincount(inv, weights=got_v.numpy().astype(np.float64))
-    sums_j = np.bincount(inv, weights=np.asarray(want_v).astype(np.float64))
-    np.testing.assert_allclose(sums_t, sums_j, atol=1e-5)
-    if length <= tsort.MAX_BITONIC_ELEMS:  # the same network on the same padding
-        np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
     np.testing.assert_array_equal(got_k.numpy(), np.sort(keys))
 
 
