@@ -61,7 +61,8 @@ Phases (any failed check raises, so the script exits non-zero):
      cluster).
   6. The three dense-path kernels against their plain versions on batch 0
      of the dense MCL run's second multiply (the run of 8): col_prune
-     bit-identical, SpMM within rtol 1e-5 in f32 and with bf16 values and
+     bit-identical in one launch (the log says how many reads of x it
+     makes), SpMM within rtol 1e-5 in f32 and with bf16 values and
      B (both sum in f32), bit-identical between calls, densify within rtol
      1e-6 (atomic sums of duplicates), each timed as in 4, beside one
      PyTorch call that computes the same function (torch.topk,
@@ -69,9 +70,13 @@ Phases (any failed check raises, so the script exits non-zero):
   7. Markov clustering (sparse_apps.mcl.mcl_iterate), sparse path, n = 2^18:
      a column-stochastic protein-similarity-like input (64-node clusters),
      inflation 2, threshold 1e-4, top-64 per column, 4 iterations under a
-     2 GiB per-process budget. First a profile of one batch of the second
-     iteration (the multiply step and the prune, top ops by device time),
-     then the loop, twice (both trajectories printed, and whether they are
+     2 GiB per-process budget. First one batch of the second iteration
+     (the multiply step and the prune): every segment-reduce input it
+     makes held against the plain version (rtol 1e-5, bit-identical
+     between calls; the log counts each input's runs by the kernel's
+     path), then a profile (top ops by device time, and each
+     segment-reduce launch: runs, entries, device time, bound). Then the
+     loop, twice (both trajectories printed, and whether they are
      bit-identical), held against the host loop (mcl_iterate_host: the same
      card multiply, pruning in numpy): nnz trajectories equal within 1e-5
      per iteration (every difference printed: f32 sums in another order can
@@ -88,8 +93,10 @@ Phases (any failed check raises, so the script exits non-zero):
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
-reduction) and the JSON result line. Without a CUDA device, or without the
-repository's src/ beside this file, it exits non-zero and prints no result.
+reduction, whose row also holds its launches, device time and bound in
+phase 7's profiled batch) and the JSON result line. Without a CUDA device,
+or without the repository's src/ beside this file, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -479,6 +486,56 @@ def hash_batch_split(A, B, grid, plan, hc, wall, batches):
     profile_top("hash n=2^20 batch 0, fused step", step)
 
 
+def capture_segment_inputs(fn, clone=False):
+    """Run ``fn`` with the segment-reduce dispatcher patched to note each
+    call's (values, offsets, kind), copied if ``clone`` (values in
+    float32, as the kernel gets them). Returns (fn's result, the inputs).
+    The callers reach the kernel through the dispatcher; the wrapper counts
+    its own launches, so it is left as it is."""
+    from repro_torch.kernels import segment_reduce as S
+
+    captured, orig = [], S.segment_reduce
+
+    def note(v, o, kind):
+        captured.append((v.float().clone(), o.clone(), kind) if clone else (v, o, kind))
+        return orig(v, o, kind)
+
+    S.segment_reduce = note
+    try:
+        out = fn()
+    finally:
+        S.segment_reduce = orig
+    return out, captured
+
+
+def hold_segment_reduce(label, vals, offsets, kind):
+    """The kernel on one input against its plain version (KERNEL_RTOL) and
+    against a second call (bit-identical); logs the input's runs by the
+    kernel's path. Returns the max abs error."""
+    import torch
+
+    from repro_torch.kernels import segment_reduce as S
+
+    got = S.segment_reduce_cuda(vals, offsets, kind)
+    again = S.segment_reduce_cuda(vals, offsets, kind)
+    want = S.segment_reduce_ref(vals, offsets, kind)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
+        raise AssertionError(f"{label}: segment_reduce differs from plain, max abs err {err}")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{label}: segment_reduce: two calls differ")
+    thread_run, warp_run = S.path_limits()
+    lengths = offsets[1:] - offsets[:-1]
+    paths = [int((lengths <= thread_run).sum()),
+             int(((lengths > thread_run) & (lengths <= warp_run)).sum()),
+             int((lengths > warp_run).sum())]
+    log(f"{label}: segment_reduce {kind} over {lengths.numel()} runs (by path: {paths[0]} "
+        f"thread, {paths[1]} warp, {paths[2]} block; longest {int(lengths.max())}) within "
+        f"rtol {KERNEL_RTOL} of plain, max abs err {err:.3g}; two calls bit-identical")
+    return err
+
+
 def check_segment_reduce(a_cat, b_cat, caps):
     """The segment reduction on the ESC run's batch 0 (the expansion's
     compress, captured from one spgemm_esc call) against its plain version,
@@ -490,14 +547,9 @@ def check_segment_reduce(a_cat, b_cat, caps):
     from repro_torch.core import local_spgemm
     from repro_torch.kernels import segment_reduce as S
 
-    captured = []
-    orig = S.segment_reduce
-    S.segment_reduce = lambda v, o, k: (captured.append((v, o, k)), orig(v, o, k))[1]
-    try:
-        runs = [local_spgemm.spgemm_esc(a_cat, b_cat, caps.d_cap, caps.flops_cap)
-                for _ in range(2)]
-    finally:
-        S.segment_reduce = orig
+    runs, captured = capture_segment_inputs(
+        lambda: [local_spgemm.spgemm_esc(a_cat, b_cat, caps.d_cap, caps.flops_cap)
+                 for _ in range(2)])
     (c1, o1), (c2, o2) = runs
     same = all(torch.equal(getattr(c1, f), getattr(c2, f)) for f in ("rows", "cols", "nnz"))
     if not (same and int(o1) == int(o2) == 0
@@ -505,15 +557,7 @@ def check_segment_reduce(a_cat, b_cat, caps):
         raise AssertionError("esc batch 0: two runs differ (or overflowed)")
     log(f"esc n=2^20 batch 0: two runs bit-identical, nnz {int(c1.nnz)}")
     vals, offsets, kind = max(captured, key=lambda c: c[0].numel())
-    got = S.segment_reduce_cuda(vals, offsets, kind)
-    again = S.segment_reduce_cuda(vals, offsets, kind)
-    want = S.segment_reduce_ref(vals, offsets, kind)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
-        raise AssertionError(f"segment_reduce: kernel differs from plain, max abs err {err}")
-    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-        raise AssertionError("segment_reduce: two calls differ")
+    err = hold_segment_reduce("esc n=2^20 batch 0", vals, offsets, kind)
     lo, hi = int(offsets[0]), int(offsets[-1])
     num = offsets.numel() - 1
     ms = device_ms(lambda: S.segment_reduce_cuda(vals, offsets, kind), 1,
@@ -861,9 +905,10 @@ def check_repeats(label, fn, a, grid, cfg, first):
     log(f"{label}: second run bit-identical ({wall2:.2f} s)")
 
 
-def profile_top(label, fn, rows=8):
+def profile_top(label, fn, rows=8, kernel=None):
     """One profiled call of ``fn``: its device time and the ops that take
-    the most of it. Diagnostic only: logs and returns nothing."""
+    the most of it (logged). Returns the device time (us) of each launch
+    of the kernel named ``kernel``, in launch order, or None without one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -872,6 +917,9 @@ def profile_top(label, fn, rows=8):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    launches = None if kernel is None else sorted(
+        (ev.time_range.start, ev.time_range.elapsed_us()) for ev in prof.events()
+        if ev.device_type == DeviceType.CUDA and kernel in ev.name)
     # kernels carry the device time; each PyTorch op that launched them
     # carries the same time again, so sum the one and list the other
     events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
@@ -881,11 +929,64 @@ def profile_top(label, fn, rows=8):
     log(f"{label}: {total:.1f} ms device time; top PyTorch ops (ms, calls):")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:rows]:
         log(f"  {e.self_device_time_total / 1e3:10.2f}  {e.count:4d}  {e.key[:90]}")
+    return None if launches is None else [us for _, us in launches]
 
 
-def profile_mcl_batch(a, grid, cfg):
-    """Where one batch of the sparse MCL loop's second iteration spends its
-    device time: the fused multiply step, then the prune postprocess."""
+def profile_segment_reduce(label, fn):
+    """Profile ``fn`` (as profile_top) and log each segment-reduce launch
+    it makes: runs, entries, device time and bound. A profiled run that
+    misses some of the launches is run again, up to PROFILE_ATTEMPTS runs.
+    Returns (launches, device ms or None if never all profiled, bound ms)
+    summed over the launches of one run."""
+    from repro_torch.kernels import segment_reduce as S
+
+    kern = S.segment_reduce_cuda
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        kern.launches = 0
+        times, calls = capture_segment_inputs(
+            lambda: profile_top(label, fn, kernel="segment_reduce_kernel"))
+        if len(calls) != kern.launches:
+            raise AssertionError(f"{label}: {kern.launches} segment-reduce launches, "
+                                 f"{len(calls)} calls")
+        if len(times) == kern.launches:
+            break
+        log(f"  profiled run {attempt} of {PROFILE_ATTEMPTS} recorded {len(times)} of "
+            f"{kern.launches} segment-reduce launches")
+    else:
+        times = [None] * len(calls)
+    total_bound = 0.0
+    for (v, o, _), us in zip(calls, times):
+        slots, runs, entries = v.numel(), o.numel() - 1, int(o[-1] - o[0])
+        bound, _ = bound_ms(4 * entries + 8 * runs + 4, entries)
+        total_bound += bound
+        t = "not measured" if us is None else f"{us / 1e3:.6f} ms device time"
+        log(f"  segment_reduce: {runs} runs over {entries} of {slots} slots, {t}, "
+            f"bound {bound:.6f} ms")
+    ms = None if None in times else sum(times) / 1e3
+    log(f"{label}: {len(calls)} segment-reduce launches, "
+        f"{'not measured' if ms is None else f'{ms:.6f} ms'} device time, "
+        f"bound {total_bound:.6f} ms")
+    return len(calls), ms, total_bound
+
+
+def mcl_sparse_input():
+    """The sparse MCL run's column-stochastic input (n = 2^18) and config."""
+    from repro_torch.core import gen
+    from repro_torch.sparse_apps import mcl
+
+    a = column_stochastic(gen.protein_similarity_like(
+        N_MCL, blocks=N_MCL // 64, intra_p=0.12, seed=0))
+    # "auto" plans the k-binned multiply here, whose dense (n, n/b) f32
+    # output tile the planner does not charge (256 GiB at b = 1): ESC
+    cfg = mcl.MCLConfig(inflation=2.0, prune_threshold=1e-4, max_per_col=64,
+                        local_path="esc", max_iters=4, per_process_memory=MCL_BUDGET)
+    return a, cfg
+
+
+def mcl_batch(a, grid, cfg):
+    """Batch 0 of the sparse MCL loop's second iteration as its two stages:
+    ``step()`` runs the fused multiply step and returns the batch's product
+    C, ``prune(c)`` the prune postprocess of C. Logs the plan."""
     import dataclasses
 
     from repro_torch.core import summa3d
@@ -903,30 +1004,47 @@ def profile_mcl_batch(a, grid, cfg):
 
     def step():
         return summa3d.summa3d_fused_step(st.A, st.B, 0, grid=grid, num_batches=plan.num_batches,
-                                          sel_cap=plan.sel_cap, caps=plan.caps)
+                                          sel_cap=plan.sel_cap, caps=plan.caps)[0]
 
-    c, _ = step()  # warm-up
-    profile_top("mcl sparse batch 0, multiply step", step)
-    k, tn = cfg.max_per_col, c.tile_shape[1]
-    profile_top("mcl sparse batch 0, prune", lambda: mcl._mcl_prune_sparse(
-        c, grid, cfg.inflation, cfg.prune_threshold, k, new_cap=min(k * tn, c.cap)))
+    def prune(c):
+        k = cfg.max_per_col
+        return mcl._mcl_prune_sparse(c, grid, cfg.inflation, cfg.prune_threshold, k,
+                                     new_cap=min(k * c.tile_shape[1], c.cap))
+
+    return step, prune
+
+
+def profile_mcl_batch(a, grid, cfg):
+    """One batch of the sparse MCL loop's second iteration (mcl_batch):
+    each segment-reduce input of its multiply step and of its prune held
+    against the plain version, then where its device time goes, with each
+    segment-reduce launch. Returns {stage: (launches, device ms, bound ms,
+    max abs err)} of the segment reduction."""
+    def stage(name, fn, inputs):
+        label = f"mcl sparse batch 0, {name}"
+        err = max(hold_segment_reduce(f"{label}, input {i}", *inp)
+                  for i, inp in enumerate(inputs))
+        return (*profile_segment_reduce(label, fn), err)
+
+    step, prune = mcl_batch(a, grid, cfg)
+    c, inputs = capture_segment_inputs(step, clone=True)  # also the step's warm-up
+    seg = {"multiply step": stage("multiply step", step, inputs)}
+    _, inputs = capture_segment_inputs(lambda: prune(c), clone=True)
+    seg["prune"] = stage("prune", lambda: prune(c), inputs)
+    return seg
 
 
 def mcl_sparse_phase(grid):
-    """Phase 7: sparse MCL at n = 2^18, device loop vs host loop."""
-    from repro_torch.core import gen
+    """Phase 7: sparse MCL at n = 2^18, device loop vs host loop. Returns
+    the segment reduction's numbers in the profiled batch (see
+    profile_mcl_batch)."""
     from repro_torch.sparse_apps import mcl
 
     t0 = time.perf_counter()
-    a = column_stochastic(gen.protein_similarity_like(
-        N_MCL, blocks=N_MCL // 64, intra_p=0.12, seed=0))
+    a, cfg = mcl_sparse_input()
     log(f"mcl sparse: n={N_MCL}, nnz(A)={int(a.nnz)}, set-up {time.perf_counter() - t0:.1f} s")
-    # "auto" plans the k-binned multiply here, whose dense (n, n/b) f32
-    # output tile the planner does not charge (256 GiB at b = 1): ESC
-    cfg = mcl.MCLConfig(inflation=2.0, prune_threshold=1e-4, max_per_col=64,
-                        local_path="esc", max_iters=4, per_process_memory=MCL_BUDGET)
-    profile_mcl_batch(a, grid, cfg)
-    fin_d, hist_d, wall_d, peak_d, launches = run_mcl(
+    seg = profile_mcl_batch(a, grid, cfg)
+    fin_d, hist_d, wall_d, peak_d, _ = run_mcl(
         mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop")
     fin_2, hist_2, wall_2, _, _ = run_mcl(
         mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop, second run")
@@ -947,7 +1065,7 @@ def mcl_sparse_phase(grid):
         f"bytes/iter {host_bytes}; host loop {wall_h:.2f} s, peak {peak_h / 2**30:.3f} GiB, "
         f"host bytes/iter {[h['host_bytes'] for h in hist_h]}; final: <= {most} per column, "
         f"column sums within {dev:.3g} of 1")
-    return launches
+    return seg
 
 
 def mcl_dense_input():
@@ -1058,9 +1176,16 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     _, n = b_cat.shape
 
     # col_prune: bit-identical
+    before = P.col_topk_bounds_cuda.launches
     got, want = P.col_topk_bounds_cuda(x, k), P.col_topk_bounds_ref(x, k)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+    if not all(torch.equal(g.view(torch.int32), w.view(torch.int32)) for g, w in zip(got, want)):
         raise AssertionError("col_prune: kernel bracket differs from plain")
+    if P.col_topk_bounds_cuda.launches != before + 1:
+        raise AssertionError("col_prune: one call must be one launch")
+    reads = P.reads_of_x()
+    log(f"col_prune: bracket bit-identical, one launch; the built kernel reads x {reads} "
+        f"times by design ({P.THRESH_ITERS} steps, {P.THRESH_ITERS // (reads - 1)} a read, "
+        f"after one for the maxima)")
     ms = device_ms(lambda: P.col_topk_bounds_cuda(x, k), 1, "col_topk_bounds_kernel", 5)
     plain = cuda_ms(lambda: P.col_topk_bounds_ref(x, k), 3)
     lib = library_device_ms("torch.topk", lambda: torch.topk(x.abs(), k, dim=0))
@@ -1127,6 +1252,8 @@ def check_dense_kernels(a_cat, b_cat, x, k):
 
 def main() -> int:
     import torch
+
+    started = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1260,7 +1387,7 @@ def main() -> int:
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
-    mcl_sparse_phase(grid)
+    seg_mcl = mcl_sparse_phase(grid)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
@@ -1278,9 +1405,13 @@ def main() -> int:
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_reduce.cu",
          "replaces": "src/repro/core/sortkeys.py:94",
-         "launches": seg_launches, "max_abs_err": seg_err, "ms": seg_ms,
+         "launches": seg_launches,
+         "max_abs_err": max(seg_err, *(s[3] for s in seg_mcl.values())), "ms": seg_ms,
          "plain_ms": seg_plain, "bound_ms": seg_bound, "bound_by": seg_by,
-         "library_ms": seg_lib},
+         "library_ms": seg_lib,
+         "mcl_n2^18_batch": {stage: {"launches": n, "ms": ms, "bound_ms": b,
+                                     "max_abs_err": e}
+                             for stage, (n, ms, b, e) in seg_mcl.items()}},
         {"name": "spgemm_paired_binned", "route": "cuda",
          "source": "src/repro_torch/csrc/spgemm_binned.cu",
          "replaces": "src/repro/kernels/spgemm_binned.py:119",
@@ -1312,6 +1443,7 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
         })
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,11 @@ The caller keeps entries ``>= hi`` and fills the remaining slots from the
 
   * ``col_topk_bounds_cuda`` — the Hopper kernel (``csrc/col_prune.cu``);
     replaces the TPU kernel
-    ``repro/kernels/col_prune.py::col_topk_bounds_pallas``.
+    ``repro/kernels/col_prune.py::col_topk_bounds_pallas``. One launch: a
+    thread block cluster of 8 blocks per 32-column tile reads x 4 times
+    (the maxima, then 8 steps a read: each |x| is binned among the 255
+    midpoints those steps can test, and the steps are replayed from the
+    histogram's exact counts); ``reads_of_x`` asks the built kernel.
   * ``col_topk_bounds_ref`` — the plain PyTorch version, the same
     ``THRESH_ITERS`` f32 steps on exact integer counts.
   * ``col_topk_bounds`` — the kernel for CUDA tensors, the plain version
@@ -76,6 +80,12 @@ def col_topk_bounds_cuda(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
 
 
 col_topk_bounds_cuda.launches = 0
+
+
+def reads_of_x() -> int:
+    """How many times the card kernel reads x in a call, the maxima's
+    read included: a constant of its design, from the built library."""
+    return _build.entry("col_prune", "col_topk_bounds_reads_of_x", [])()
 
 
 def col_topk_bounds(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:

@@ -9,8 +9,13 @@ kernel behind it; on the card a ``scatter_reduce_`` of atomics would add in
 an order that changes from run to run.
 
   * ``segment_reduce_cuda`` — the Hopper kernel (``csrc/segment_reduce.cu``):
-    one warp per run, lane-strided partials combined by a fixed butterfly,
-    so the same inputs give the same bits on every run. float32 values.
+    one thread per run of at most 32 entries, summed serially in entry
+    order (so such sums have the plain version's bits on the CPU); longer
+    runs go to a warp (lane-strided partials, a fixed butterfly), and runs
+    of more than 4096 entries to a whole block (a fixed tree);
+    ``path_limits`` asks the built kernel for the two lengths. The path
+    depends on a run's length alone, so the same inputs give the same bits
+    on every run. float32 values.
   * ``segment_reduce_ref`` — the plain PyTorch version: each entry's run by
     binary search in ``offsets``, then one ``scatter_reduce_`` (serial, so
     deterministic, on the CPU), in the values' own dtype.
@@ -20,6 +25,7 @@ an order that changes from run to run.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -78,6 +84,13 @@ def segment_reduce_cuda(vals: Tensor, offsets: Tensor, add_kind: str) -> Tensor:
 
 
 segment_reduce_cuda.launches = 0
+
+
+def path_limits() -> Tuple[int, int]:
+    """The card kernel's longest run for one thread and for one warp
+    (longer runs take a block), from the built library."""
+    return (_build.entry("segment_reduce", "segment_reduce_thread_run", [])(),
+            _build.entry("segment_reduce", "segment_reduce_warp_run", [])())
 
 
 def segment_reduce(vals: Tensor, offsets: Tensor, add_kind: str) -> Tensor:

@@ -81,7 +81,11 @@ def bin_both(inp, lib, asarray):
 def prune_block(seed, m=96, n=40, kind="random"):
     """A dense f32 (m, n) block for the per-column top-k bisection:
     "random" (distinct values, some zeros), "tied" (a few values repeated
-    across the k boundary) or "uniform" (every column one value)."""
+    across the k boundary), "uniform" (every column one value), "narrow"
+    (each column's values within 4 ulps of one another, both signs, so the
+    bisection's interval shrinks to an ulp and midpoints fall on lo or hi)
+    or "sparse_col" (0 to 4 nonzeros a column, column 0 all zero: fewer
+    than k nonzeros for most k)."""
     rng = np.random.default_rng(seed)
     x = rng.uniform(-1.0, 1.0, (m, n)).astype(np.float32)
     x[rng.random((m, n)) < 0.3] = 0.0
@@ -90,6 +94,15 @@ def prune_block(seed, m=96, n=40, kind="random"):
     elif kind == "uniform":
         x = np.broadcast_to(rng.uniform(0.1, 1.0, n).astype(np.float32), (m, n)).copy()
         x[:, 0] = 0.0  # an all-zero column
+    elif kind == "narrow":
+        base = rng.uniform(0.1, 1.0, n).astype(np.float32).view(np.int32)
+        bits = base[None, :] + rng.integers(0, 5, (m, n)).astype(np.int32)
+        x = bits.view(np.float32) * rng.choice(np.float32([-1.0, 1.0]), (m, n))
+    elif kind == "sparse_col":
+        x = np.zeros((m, n), np.float32)
+        for c in range(1, n):
+            idx = rng.choice(m, int(rng.integers(0, 5)), replace=False)
+            x[idx, c] = rng.uniform(-1.0, 1.0, idx.size)
     return x
 
 

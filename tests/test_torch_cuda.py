@@ -70,14 +70,33 @@ def test_paired_binned_cuda_matches_plain(cuda_device):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("kind", ["random", "tied", "uniform"])
+# kind -> (prune_block kind, m, n, ks): m = 3000 splits evenly over the
+# kernel's 8-block cluster, 3001 does not; n = 333 is not a multiple of its
+# 32-column tile; "k_ge_m" has k >= m (and a cluster block with no rows);
+# "mcl_block" is the dense MCL phase's 16384 x 4096 block at k = 64
+_PRUNE_CASES = {
+    "random": ("random", 3000, 333, (1, 7, 64)),
+    "tied": ("tied", 3000, 333, (1, 7, 64)),
+    "uniform": ("uniform", 3000, 333, (1, 7, 64)),
+    "narrow": ("narrow", 3001, 333, (1, 7, 64)),
+    "sparse_col": ("sparse_col", 3001, 333, (1, 7, 64)),
+    "k_ge_m": ("random", 7, 70, (7, 8, 64)),
+    "mcl_block": ("random", 16384, 4096, (64,)),
+}
+
+
+@pytest.mark.parametrize("kind", list(_PRUNE_CASES))
 def test_col_topk_bounds_cuda_matches_plain(cuda_device, kind):
-    x = torch.as_tensor(prune_block(seed=31, m=3000, n=333, kind=kind), device=cuda_device)
-    for k in (1, 7, 64):
+    """The bracket is bit-identical to the plain version's, one launch a call."""
+    block_kind, m, n, ks = _PRUNE_CASES[kind]
+    x = torch.as_tensor(prune_block(seed=31, m=m, n=n, kind=block_kind), device=cuda_device)
+    for k in ks:
+        before = tprune.col_topk_bounds_cuda.launches
         got = tprune.col_topk_bounds_cuda(x, k)
+        assert tprune.col_topk_bounds_cuda.launches == before + 1
         want = tprune.col_topk_bounds_ref(x, k)
         for g, w in zip(got, want):
-            assert torch.equal(g, w)
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -207,14 +226,35 @@ def test_paired_cuda_matches_plain(cuda_device, kind):
     assert (int((want != 0).sum()) == 0) == (kind == "b_padding")
 
 
+def _segment_lengths(layout, rng):
+    """Run lengths and the first run's offset for one segment layout."""
+    t, w = tseg.path_limits()
+    if layout == "mixed":  # 0 to 11 entries, one run of 10^5 and one of 3000
+        lengths = rng.integers(0, 12, 20000)
+        lengths[[5, 700]] = (100000, 3000)
+        return lengths, 17
+    if layout == "thresholds":  # each length at and just past a path's limit
+        edges = np.array([0, 1, t - 1, t, t + 1, w - 1, w, w + 1, 3 * w])
+        return np.tile(rng.permutation(edges), 40), 5
+    if layout == "all_empty":
+        return np.zeros(5000, np.int64), 3
+    # "esc": the packed-key engine's compress, 1 to 3 entries a live run,
+    # then an empty tail of slots past nnz
+    return np.concatenate([rng.integers(1, 4, 30000), np.zeros(20000, np.int64)]), 0
+
+
 @pytest.mark.parametrize("add_kind", ["sum", "min", "max"])
-def test_segment_reduce_cuda_matches_plain(cuda_device, add_kind):
-    """Runs of 0 to 10^5 entries (one warp each), entries before the first
-    run and past the last never read; two calls give the same bits."""
+@pytest.mark.parametrize("layout", ["mixed", "thresholds", "all_empty", "esc"])
+def test_segment_reduce_cuda_matches_plain(cuda_device, layout, add_kind):
+    """Runs of every path (one thread up to the kernel's thread limit, a
+    warp up to its warp limit, a block beyond: ``path_limits``), empty runs
+    and an empty tail, entries before the first run and past the last never
+    read; two calls give the same bits, and a run a thread sums has the
+    bits of the plain version on the CPU (both add serially in entry
+    order)."""
     rng = np.random.default_rng(71)
-    lengths = rng.integers(0, 12, 20000)
-    lengths[[5, 700]] = (100000, 3000)
-    offsets = np.concatenate([[17], 17 + np.cumsum(lengths)]).astype(np.int32)
+    lengths, first = _segment_lengths(layout, rng)
+    offsets = np.concatenate([[first], first + np.cumsum(lengths)]).astype(np.int32)
     vals = rng.uniform(-1, 1, int(offsets[-1]) + 29).astype(np.float32)
     v = torch.as_tensor(vals, device=cuda_device)
     off = torch.as_tensor(offsets, device=cuda_device)
@@ -229,6 +269,11 @@ def test_segment_reduce_cuda_matches_plain(cuda_device, add_kind):
     else:
         assert torch.equal(got, want)
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    short = torch.as_tensor(lengths <= tseg.path_limits()[0])
+    cpu = tseg.segment_reduce_ref(v.cpu(), off.cpu(), add_kind)
+    assert torch.equal(got.cpu()[short].view(torch.int32), cpu[short].view(torch.int32))
+    if layout == "all_empty":
+        assert bool((got == tsr.scatter_reduce_init(add_kind)).all())
 
 
 def _hash_operands(device, outside_k=False):

@@ -126,7 +126,7 @@ def test_paired_binned_cuda_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("k", [1, 5, 64])
-@pytest.mark.parametrize("kind", ["random", "tied", "uniform"])
+@pytest.mark.parametrize("kind", ["random", "tied", "uniform", "narrow", "sparse_col"])
 def test_col_topk_bounds_plain_matches_pallas(kind, k):
     x = prune_block(seed=21 + k, kind=kind)
     lo, hi = tprune.col_topk_bounds(torch.as_tensor(x), k)

@@ -22,6 +22,7 @@ from repro_torch.core import local_spgemm as tlocal
 from repro_torch.core import semiring as tsr
 from repro_torch.core import sortkeys as tsort
 from repro_torch.core import sparse as tsparse
+from repro_torch.kernels import segment_reduce as tsegk
 
 SEMIRINGS = ["plus_times", "min_plus", "max_times"]
 
@@ -161,6 +162,26 @@ def test_segment_reduce_matches_jax(add_kind, ids_sorted):
         empty = np.bincount(ids[keep], minlength=num) == 0
         assert np.all(np.isinf(got.numpy()[empty]))
         np.testing.assert_array_equal(got.numpy()[~empty], np.asarray(want)[~empty])
+
+
+@pytest.mark.parametrize("longest", [32, 12288], ids=["thread_runs", "long_runs"])
+def test_segment_reduce_plain_adds_in_entry_order(longest):
+    """The plain version adds each run's entries one at a time in entry
+    order, the order in which the card kernel's thread adds a short run
+    (the card test holds those sums to these bits): its sums equal an f32
+    running sum, bit for bit, for runs of up to 32 entries and for runs
+    long enough that the card gives them to a warp or a block."""
+    rng = np.random.default_rng(9)
+    lengths = rng.integers(0, longest + 1, 300)
+    offsets = np.concatenate([[4], 4 + np.cumsum(lengths)]).astype(np.int32)
+    vals = (rng.standard_normal(int(offsets[-1]) + 6)
+            * np.exp(rng.uniform(-9, 9, int(offsets[-1]) + 6))).astype(np.float32)
+    got = tsegk.segment_reduce(torch.as_tensor(vals), torch.as_tensor(offsets), "sum").numpy()
+    want = np.zeros(lengths.size, np.float32)
+    for j in range(int(lengths.max())):
+        live = lengths > j
+        want[live] = want[live] + vals[offsets[:-1][live] + j]
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 @pytest.mark.parametrize("kind", ["er", "rmat"])
