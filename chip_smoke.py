@@ -21,7 +21,8 @@ Phases (any failed check raises, so the script exits non-zero):
        b. the same product on the ESC path, same budget (the segment-reduce
           kernel sums every batch);
        c. the default path: n = 2^14, budget 48 B x nnz(A), local_path
-          "auto", which plans the k-binned multiply with b = 16.
+          "auto", which plans the k-binned multiply with b = 16; run a
+          second time, which must give the same bits.
      Each product is checked against scipy's A @ A on the host: identical
      structure, values within rtol 1e-4 (fp32 sums in another order).
   4. Each kernel against its plain PyTorch version on the card, on the
@@ -31,7 +32,8 @@ Phases (any failed check raises, so the script exits non-zero):
      within rtol 1e-5 since atomics add in a run-dependent order, min/max
      exact, no drops) and in one that is far too small (both drop); the
      hash run's per-batch split of wall and device time; the binned
-     multiply within rtol 1e-5 / atol 1e-6 (atomic f32 adds); the segment
+     multiply bit-identical to its plain version run on the CPU (both add
+     in bin, A slot, B slot order) and to a second call; the segment
      reduction on the ESC run's batch 0 sum (rtol 1e-5, bit-identical
      between calls), beside torch.segment_reduce and the scatter_reduce_
      it replaced; and the ESC multiply of that batch run twice, which must
@@ -87,9 +89,9 @@ Phases (any failed check raises, so the script exits non-zero):
      4 forced batches of 16384 x 4096 f32 tiles, 6 iterations, held against
      the sparse device loop and the host loop: nnz trajectories as in 7,
      identical partitions; the col_prune, SpMM and densify kernels must
-     launch. The dense loop and the sparse loop on the ESC multiply each
-     run twice and must repeat their results bit for bit (the binned
-     multiply, which the sparse loop plans by default, adds with atomics).
+     launch. The dense loop, the sparse loop on its default (binned)
+     multiply and the sparse loop on the ESC multiply each run twice and
+     must repeat their results bit for bit.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
@@ -119,12 +121,12 @@ N_FULL = 1 << 20
 N_DEFAULT = 1 << 14
 N_MCL = 1 << 18
 VALUE_RTOL = 1e-4  # vs scipy: fp32 sums in another order
-KERNEL_RTOL = 1e-5  # kernel vs plain: atomics add in a run-dependent order
+KERNEL_RTOL = 1e-5  # kernel vs plain: sums in another order (hash and paired atomics, SpMM)
 DENSIFY_RTOL = 1e-6  # atomic sums of a few duplicates, in a run-dependent order
 CHAOS_RTOL = 1e-3  # device loop (f32) vs host loop (f64 pruning), as the JAX tests allow
 MCL_BUDGET = 2 << 30  # per-process bytes: iteration 2 of the n = 2^18 run plans b >= 4
-# MCL loops that sum in another order (binned atomics, SpMM rows, ESC runs;
-# f32 device pruning vs f64 host pruning) can move an entry across the 1e-4
+# MCL loops that sum in another order (SpMM rows, binned vs ESC runs; f32
+# device pruning vs f64 host pruning) can move an entry across the 1e-4
 # threshold: their nnz may differ by this share per iteration, never more
 NNZ_RTOL = 1e-5
 PROFILE_MARGIN_S = 0.02  # idle time around a profiled window (see device_ms)
@@ -282,6 +284,16 @@ def batch0_operands(A, B, grid, plan):
     )
     return (summa3d._gather_A(A.local(*grid.coords), grid),
             summa3d._gather_B(sel, grid))
+
+
+def same_parts(parts, parts2) -> bool:
+    """Two runs' batches (rows, cols, vals) are the same bits."""
+    import torch
+
+    return len(parts) == len(parts2) and all(
+        torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
+        and torch.equal(p[2].view(torch.int32), q[2].view(torch.int32))
+        for p, q in zip(parts, parts2))
 
 
 def hash_bytes_per_launch(chunks, chunk_cap) -> tuple:
@@ -603,10 +615,10 @@ def library_operands(a_cat, b_cat):
     return a_sp, b_sp, matches
 
 
-def check_binned_kernel(a_cat, b_cat, kb, bin_of_k):
-    """Binned multiply: kernel vs plain (and torch.sparse.mm as the library
-    yardstick) on batch 0's binned operands. Returns (max abs err, kernel
-    ms, plain ms, library ms, bytes, flops, shapes)."""
+def binned_operands(a_cat, b_cat, kb, bin_of_k):
+    """Batch 0's gathered A and selected B, binned by the run's plan as
+    local_spgemm.spgemm_kbinned bins them: the binned multiply's arguments
+    (a_rows, a_k, a_vals, b_k, b_cols, b_vals, m, n)."""
     import torch
 
     from repro_torch.kernels import spgemm_binned as Bn
@@ -623,18 +635,41 @@ def check_binned_kernel(a_cat, b_cat, kb, bin_of_k):
     bk, bc, bvb, _ = Bn.bin_entries_by_k(
         b_cat.rows, b_cat.cols, bv, b_valid, k, kb.num_bins, kb.bin_cap_b,
         fill_k=-2, fill_other=n, bin_map=bin_of_k)
-    args = (ar, ak, avb, bk, bc, bvb, m, n)
+    return ar, ak, avb, bk, bc, bvb, m, n
+
+
+def check_binned_kernel(a_cat, b_cat, kb, bin_of_k):
+    """Binned multiply on batch 0's binned operands: the kernel bit-identical
+    to its plain version run on the CPU and to a second call; timed beside
+    the plain version on the card and torch.sparse.mm (the library
+    yardstick). Returns (max abs err, kernel ms, plain ms, library ms,
+    bytes, flops)."""
+    import torch
+
+    from repro_torch.kernels import spgemm_binned as Bn
+
+    args = binned_operands(a_cat, b_cat, kb, bin_of_k)
+    ar, bk, m, n = args[0], args[3], args[6], args[7]
     got = Bn.spgemm_paired_binned_cuda(*args)
-    want = Bn.spgemm_paired_binned_ref(*args)
-    torch.cuda.synchronize()
+    again = Bn.spgemm_paired_binned_cuda(*args)
+    t0 = time.perf_counter()
+    want = Bn.spgemm_paired_binned_ref(*(t.cpu() for t in args[:6]), m, n)
+    cpu_s = time.perf_counter() - t0
+    got = got.cpu()
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
-        raise AssertionError(f"binned: kernel differs from plain, max abs err {err}")
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"binned: kernel differs from its plain version on the CPU in "
+                             f"{int((got.view(torch.int32) != want.view(torch.int32)).sum())} "
+                             f"entries, max abs err {err}")
+    if not torch.equal(got.view(torch.int32), again.cpu().view(torch.int32)):
+        raise AssertionError("binned: a second call gives other bits")
+    log(f"binned: bit-identical to the plain version on the CPU ({cpu_s:.1f} s) and "
+        f"between two calls")
     a_sp, b_sp, matches = library_operands(a_cat, b_cat)
     events = cuda_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 20)
-    # the wrapper's time: C's zero fill and the kernel
-    ms = device_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 1, "binned_paired_kernel", 10)
-    log(f"binned: {ms:.6f} ms device time (zero fill + kernel); {events:.6f} ms "
+    # the wrapper's time: its two stable sorts and the two kernels
+    ms = device_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 1, "binned_pull_kernel", 10)
+    log(f"binned: {ms:.6f} ms device time (sorts + kernels); {events:.6f} ms "
         f"with CUDA events")
     plain = cuda_ms(lambda: Bn.spgemm_paired_binned_ref(*args), 3)
     lib = library_device_ms("torch.sparse.mm", lambda: torch.sparse.mm(a_sp, b_sp))
@@ -1091,11 +1126,14 @@ def mcl_dense_phase(grid, a, cfg):
         mcl.mcl_iterate, a, grid, cfg, "mcl dense n=2^14, device loop")
     check_repeats("mcl dense n=2^14, device loop", mcl.mcl_iterate, a, grid, cfg,
                   (fin_d, hist_d))
-    fin_s, hist_s, _, _, _ = run_mcl(
-        mcl.mcl_iterate, a, grid, dataclasses.replace(cfg, path="sparse"),
-        "mcl dense n=2^14, sparse device loop")
-    # the binned multiply that "auto" plans adds with atomics: the repeat
-    # runs the sparse loop on the ESC multiply, whose sums are order-fixed
+    sparse = dataclasses.replace(cfg, path="sparse")
+    fin_s, hist_s, _, _, sparse_launches = run_mcl(
+        mcl.mcl_iterate, a, grid, sparse, "mcl dense n=2^14, sparse device loop")
+    if sparse_launches["spgemm_paired_binned"] == 0:
+        raise AssertionError(f"mcl sparse n=2^14: the binned kernel did not launch: "
+                             f"{sparse_launches}")
+    check_repeats("mcl dense n=2^14, sparse device loop", mcl.mcl_iterate, a, grid, sparse,
+                  (fin_s, hist_s))
     esc = dataclasses.replace(cfg, path="sparse", local_path="esc")
     fin_e, hist_e, _, _, _ = run_mcl(mcl.mcl_iterate, a, grid, esc,
                                      "mcl n=2^14, sparse device loop (esc)")
@@ -1328,6 +1366,8 @@ def main() -> int:
         res, wall, peak, parts = run_multiply(AA, BB, grid, bud, lp)
         launches[label] = {name: w.launches for name, w in counted.items()}
         err = check_product(parts, ref_full if n == N_FULL else ref14, n)
+        if lp == "auto":
+            auto_parts = parts
         del parts
         runs[label], walls[label] = res, wall
         log(f"{label}: path {res.local_path}, b={res.plan.num_batches}, "
@@ -1348,6 +1388,11 @@ def main() -> int:
                              f"{launches['esc n=2^20']}")
     if not (rb.local_path == "binned" and rb.plan.num_batches == 16 and binned_launches > 0):
         raise AssertionError("default run: must plan binned with b = 16 and launch it")
+    _, wall2, _, parts2 = run_multiply(A14, B14, grid, budget14, "auto")
+    if not same_parts(auto_parts, parts2):
+        raise AssertionError("auto n=2^14: a second run gives other bits")
+    log(f"auto n=2^14: second run bit-identical, wall {wall2:.2f} s")
+    del auto_parts, parts2
 
     # 4. kernels against their plain versions, on batch 0's operands
     a_cat, b_cat = batch0_operands(A, B, grid, rh.plan)

@@ -16,6 +16,11 @@ bin are paired, so the pairing work drops from capA × capB to
   * ``spgemm_paired_binned`` — the kernel for CUDA tensors, the plain
     version for CPU tensors.
 
+Both add the products of every C[r, c] in one fixed order — bins
+ascending, then A slots, then B slots — from 0.0, each product and sum
+rounded on its own, so the kernel's C has the plain version's bits (on the
+CPU, where ``index_add_`` adds serially in index order).
+
 Padding sentinels: A pads k with -1, B with -2 (never equal), values with 0.
 
 ``pairing_counts`` compares the pairing work of the unbinned and the binned
@@ -32,9 +37,11 @@ from . import _build
 
 Tensor = torch.Tensor
 
-# spgemm_paired_binned_launch(a_rows, a_k, a_vals, b_k, b_cols, b_vals,
-#                             num_bins, bin_cap_a, bin_cap_b, m, n, out, stream)
-_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+# spgemm_paired_binned_launch(a_key, a_slot, a_k, a_vals, na, bin_cap_a,
+#                             b_key, b_slot, b_cols, b_vals, nb, bin_cap_b, m, n,
+#                             row_start, a_rec, b_rec, out, stream)
+_LAUNCH_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
 
 
 # ---------------------------------------------------------------------------
@@ -113,13 +120,17 @@ def spgemm_paired_binned_ref(
     b_k: Tensor, b_cols: Tensor, b_vals: Tensor, m: int, n: int,
 ) -> Tensor:
     """Plain PyTorch version: dense f32 C (m, n) = Σ over same-bin pairs with
-    a_k == b_k of a_val * b_val at (a_row, b_col)."""
+    a_k == b_k of a_val * b_val at (a_row, b_col); rows outside [0, m) and
+    columns outside [0, n) go to a discarded slot. The pairs are listed bins
+    ascending, then A slots, then B slots (``torch.nonzero`` is row-major),
+    and on the CPU ``index_add_`` adds them serially in that order."""
     _check(a_rows, a_k, a_vals, b_k, b_cols, b_vals)
     out = torch.zeros((m + 1) * (n + 1), dtype=torch.float32, device=a_rows.device)
     for g in range(a_rows.shape[0]):
         ia, ib = torch.nonzero(a_k[g][:, None] == b_k[g][None, :], as_tuple=True)
-        r = torch.clamp(a_rows[g][ia], 0, m).long()
-        c = torch.clamp(b_cols[g][ib], 0, n).long()
+        r, c = a_rows[g][ia].long(), b_cols[g][ib].long()
+        r = torch.where((r >= 0) & (r < m), r, m)
+        c = torch.where((c >= 0) & (c < n), c, n)
         out.index_add_(0, r * (n + 1) + c, a_vals[g][ia] * b_vals[g][ib])
     return out.reshape(m + 1, n + 1)[:m, :n]
 
@@ -128,7 +139,9 @@ def spgemm_paired_binned_cuda(
     a_rows: Tensor, a_k: Tensor, a_vals: Tensor,
     b_k: Tensor, b_cols: Tensor, b_vals: Tensor, m: int, n: int,
 ) -> Tensor:
-    """Launch the Hopper kernel on the current stream into a zeroed C."""
+    """Launch the Hopper kernels on the current stream: A's slots sorted
+    stably by row and B's by contraction index (``torch.sort``), then the
+    order-fixed pull, which writes every element of C once."""
     _check(a_rows, a_k, a_vals, b_k, b_cols, b_vals)
     tensors = (a_rows, a_k, a_vals, b_k, b_cols, b_vals)
     dev = a_rows.device
@@ -136,13 +149,25 @@ def spgemm_paired_binned_cuda(
         raise ValueError("spgemm_paired_binned_cuda needs all tensors on one CUDA device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("spgemm_paired_binned_cuda needs contiguous tensors")
-    out = torch.zeros((m, n), dtype=torch.float32, device=dev)
-    num_bins, bin_cap_a = a_rows.shape
-    bin_cap_b = b_k.shape[1]
+    na, nb = a_rows.numel(), b_k.numel()
+    if max(na, nb, m, n) >= 2**31 - 1:
+        raise ValueError(f"spgemm_paired_binned_cuda takes sizes below 2^31 - 1: "
+                         f"{na} A and {nb} B slots, C ({m}, {n})")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    bin_cap_a, bin_cap_b = max(a_rows.shape[1], 1), max(b_k.shape[1], 1)
+    a_key, a_slot = torch.sort(a_rows.reshape(-1), stable=True)
+    b_key, b_slot = torch.sort(b_k.reshape(-1), stable=True)
+    row_start = torch.empty(m + 1, dtype=torch.int32, device=dev)
+    a_rec = torch.empty((na, 4), dtype=torch.int32, device=dev)  # (B start, B count, a_val bits, 0)
+    b_rec = torch.empty((nb, 2), dtype=torch.int32, device=dev)  # (column, value bits)
     fn = _build.entry("spgemm_binned", "spgemm_paired_binned_launch", _LAUNCH_ARGTYPES)
     err = fn(
-        *(t.data_ptr() for t in tensors), num_bins, bin_cap_a, bin_cap_b, m, n,
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        a_key.data_ptr(), a_slot.data_ptr(), a_k.data_ptr(), a_vals.data_ptr(), na, bin_cap_a,
+        b_key.data_ptr(), b_slot.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(), nb, bin_cap_b,
+        m, n, row_start.data_ptr(), a_rec.data_ptr(), b_rec.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "spgemm_paired_binned_cuda")
     spgemm_paired_binned_cuda.launches += 1

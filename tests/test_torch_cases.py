@@ -78,6 +78,89 @@ def bin_both(inp, lib, asarray):
     return out
 
 
+BINNED_LAYOUTS = ("dup_bk", "dup_ak", "empty_bins", "padding", "heavy_row", "heavy_k",
+                  "odd_n", "wide_n", "all_padding")
+
+
+def binned_layout(kind, seed, scale=1):
+    """Binned operands (a_rows, a_k, a_vals, b_k, b_cols, b_vals) as
+    (num_bins, bin_cap) numpy arrays, and (m, n), for the paired multiply's
+    order of sums. Bin g holds contraction indices [8g, 8g + 8); padding
+    (A: k -1, row m; B: k -2, column n; value 0) is scattered among the
+    live slots. Values are signed, so a sum in another order shows.
+
+      * "dup_bk": B entries repeat (k, column) pairs, neighbours in a bin;
+      * "dup_ak": A entries repeat (row, k) pairs;
+      * "empty_bins": A's bins 1 and 3 and B's bin 2 are all padding;
+      * "padding": live-valued entries on rows and columns outside [0, m)
+        and [0, n) (m, -1, m + 5; n, -3), which contribute nothing;
+      * "heavy_row": row 0 holds most of A's entries (300 * scale a bin);
+      * "heavy_k": one k of bin 1 holds 40 * scale B entries on 5 columns;
+      * "odd_n": n = 37; "wide_n": n = 2500 (more than one 1024-column tile);
+      * "all_padding": nothing live.
+    """
+    rng = np.random.default_rng(seed)
+    num_bins, kb = 4, 8
+    cap_a, cap_b, m, n = 96 * scale, 80 * scale, 30, 44
+    if kind == "heavy_row":
+        cap_a = 300 * scale
+    elif kind == "odd_n":
+        n = 37
+    elif kind == "wide_n":
+        n = 2500
+    shape_a, shape_b = (num_bins, cap_a), (num_bins, cap_b)
+    kbase_a = (np.arange(num_bins) * kb)[:, None]
+    a_k = (kbase_a + rng.integers(0, kb, shape_a)).astype(np.int32)
+    a_rows = rng.integers(0, m, shape_a).astype(np.int32)
+    a_vals = rng.uniform(-1.0, 1.0, shape_a).astype(np.float32)
+    b_k = ((np.arange(num_bins) * kb)[:, None] + rng.integers(0, kb, shape_b)).astype(np.int32)
+    b_cols = rng.integers(0, n, shape_b).astype(np.int32)
+    b_vals = rng.uniform(-1.0, 1.0, shape_b).astype(np.float32)
+    a_live = rng.random(shape_a) < 0.85
+    b_live = rng.random(shape_b) < 0.85
+    if kind == "dup_bk":
+        b_k = ((np.arange(num_bins) * kb)[:, None] + rng.integers(0, 2, shape_b)).astype(np.int32)
+        b_cols = rng.integers(0, 3, shape_b).astype(np.int32)
+    elif kind == "dup_ak":
+        a_k = (kbase_a + rng.integers(0, 2, shape_a)).astype(np.int32)
+        a_rows = rng.integers(0, 3, shape_a).astype(np.int32)
+    elif kind == "empty_bins":
+        a_live[[1, 3]] = False
+        b_live[2] = False
+    elif kind == "padding":
+        off_a = rng.random(shape_a) < 0.2
+        a_rows[off_a] = rng.choice(np.int32([m, -1, m + 5]), int(off_a.sum()))
+        off_b = rng.random(shape_b) < 0.2
+        b_cols[off_b] = rng.choice(np.int32([n, -3]), int(off_b.sum()))
+    elif kind == "heavy_row":
+        a_rows[rng.random(shape_a) < 0.9] = 0
+    elif kind == "heavy_k":
+        heavy = np.flatnonzero(rng.random(cap_b) < 0.5)[:40 * scale]
+        b_k[1, heavy] = kb + 3
+        b_cols[1, heavy] = rng.integers(0, 5, heavy.size)
+        b_live[1, heavy] = True
+    elif kind == "all_padding":
+        a_live[:] = False
+        b_live[:] = False
+    a_k[~a_live], a_rows[~a_live], a_vals[~a_live] = -1, m, 0.0
+    b_k[~b_live], b_cols[~b_live], b_vals[~b_live] = -2, n, 0.0
+    return (a_rows, a_k, a_vals, b_k, b_cols, b_vals), (m, n)
+
+
+def binned_serial_sum(arrays, m, n):
+    """C (m, n) f32 as a serial f32 sum from 0.0: bins ascending, then A
+    slots, then B slots; each product and each sum rounded to f32 on its
+    own. Rows outside [0, m) and columns outside [0, n) are skipped."""
+    a_rows, a_k, a_vals, b_k, b_cols, b_vals = arrays
+    out = np.zeros((m, n), np.float32)
+    for g in range(a_rows.shape[0]):
+        for ia, ib in zip(*np.nonzero(a_k[g][:, None] == b_k[g][None, :])):
+            r, c = int(a_rows[g, ia]), int(b_cols[g, ib])
+            if 0 <= r < m and 0 <= c < n:
+                out[r, c] = np.float32(out[r, c] + np.float32(a_vals[g, ia] * b_vals[g, ib]))
+    return out
+
+
 def prune_block(seed, m=96, n=40, kind="random"):
     """A dense f32 (m, n) block for the per-column top-k bisection:
     "random" (distinct values, some zeros), "tied" (a few values repeated

@@ -9,8 +9,10 @@ scatters, add in another order; densify's sums of duplicates within rtol
 1e-6), key sets, min/max values and drop/no-drop exact, the column top-k
 bracket and the bitonic sort's keys and values bit-identical. The paired
 multiply's rtol 1e-5 / atol 1e-6 allows for the order of its atomic sums.
-The SpMM, the segment reduction and the ESC multiply use no atomics: two
-calls on the same inputs must give the same bits.
+The k-binned multiply adds in a fixed order: bit-identical to its plain
+version run on the CPU. It, the SpMM, the segment reduction and the ESC
+multiply use no atomics on their sums: two calls on the same inputs must
+give the same bits.
 """
 import numpy as np
 import pytest
@@ -29,8 +31,8 @@ from repro_torch.kernels import spgemm_binned as tbinned
 from repro_torch.kernels import spgemm_hash as thash
 from repro_torch.kernels.spmm_kernel import spmm_cuda, spmm_ref
 from test_torch_cases import (
-    SORT_KINDS, assert_vals, bin_both, binned_inputs, coo_entries, dup_keys, paired_case,
-    prune_block, random_chunks, sort_keys, torch_tables,
+    BINNED_LAYOUTS, SORT_KINDS, assert_vals, bin_both, binned_inputs, binned_layout, coo_entries,
+    dup_keys, paired_case, prune_block, random_chunks, sort_keys, torch_tables,
 )
 
 pytestmark = pytest.mark.cuda
@@ -59,15 +61,35 @@ def test_hash_insert_cuda_matches_plain(cuda_device, add_kind):
         assert_vals(add_kind, kt[1][ko][live], pt[1][po][live])
 
 
+def assert_binned_order_fixed(arrays, m, n, device):
+    """The kernel's C is bit-identical to the plain version's on the CPU
+    (a serial f32 sum in bin, A slot, B slot order), in each of two calls;
+    one launch a call."""
+    args = [torch.as_tensor(x, device=device) for x in arrays]
+    before = tbinned.spgemm_paired_binned_cuda.launches
+    got = tbinned.spgemm_paired_binned_cuda(*args, m, n)
+    again = tbinned.spgemm_paired_binned_cuda(*args, m, n)
+    assert tbinned.spgemm_paired_binned_cuda.launches == before + 2
+    want = tbinned.spgemm_paired_binned_ref(*(a.cpu() for a in args), m, n)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
 def test_paired_binned_cuda_matches_plain(cuda_device):
     inp = binned_inputs(seed=12, m=300, n=260, k_dim=400, cap_a=5000, cap_b=4000,
                         num_bins=8, bin_map=True)
-    (ak, ar, av, _), (bk, bc, bv, _) = bin_both(
-        inp, tbinned, lambda x: torch.as_tensor(x, device=cuda_device))
-    args = (ar, ak, av, bk, bc, bv, inp["m"], inp["n"])
-    got = tbinned.spgemm_paired_binned_cuda(*args)
-    want = tbinned.spgemm_paired_binned_ref(*args)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    (ak, ar, av, _), (bk, bc, bv, _) = bin_both(inp, tbinned, torch.as_tensor)
+    assert_binned_order_fixed((ar, ak, av, bk, bc, bv), inp["m"], inp["n"], cuda_device)
+
+
+@pytest.mark.parametrize("kind", BINNED_LAYOUTS)
+def test_paired_binned_cuda_order_fixed(cuda_device, kind):
+    """Repeated (k, column) pairs in one 32-entry chunk of a B bucket,
+    repeated (row, k) pairs, empty bins, live values outside [0, m) x
+    [0, n), a row of ~3700 A entries, a B bucket of 160 entries, n % 4 != 0,
+    three column tiles, and nothing live (see binned_layout)."""
+    arrays, (m, n) = binned_layout(kind, seed=72, scale=4)
+    assert_binned_order_fixed(arrays, m, n, cuda_device)
 
 
 # kind -> (prune_block kind, m, n, ks): m = 3000 splits evenly over the

@@ -47,8 +47,9 @@ from repro_torch.kernels import spgemm_acc as tacc
 from repro_torch.kernels import spgemm_hash as thash
 from repro_torch.kernels.spmm_kernel import spmm, spmm_cuda
 from test_torch_cases import (
-    assert_vals, bin_both, binned_inputs, coo_entries, dense_random, dup_keys, meet_outside_k,
-    paired_entries, prune_block, random_chunks, sort_keys, torch_tables,
+    assert_vals, bin_both, binned_inputs, binned_layout, binned_serial_sum, coo_entries,
+    dense_random, dup_keys, meet_outside_k, paired_entries, prune_block, random_chunks, sort_keys,
+    torch_tables,
 )
 
 ADD_KINDS = ["sum", "min", "max"]
@@ -116,6 +117,16 @@ def test_paired_binned_plain_matches_jax(bin_map):
     want = jref.spgemm_paired_binned_ref(jar, jak, jav, jbk, jbc, jbv, inp["m"], inp["n"])
     assert np.count_nonzero(np.asarray(want)) > 0
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["dup_bk", "dup_ak", "empty_bins", "padding", "heavy_row"])
+def test_paired_binned_plain_is_serial_sum(kind):
+    """The plain version's C has the bits of a serial f32 sum in (bin, A
+    slot, B slot) order, the order the Hopper kernel keeps."""
+    arrays, (m, n) = binned_layout(kind, seed=71)
+    got = tbinned.spgemm_paired_binned_ref(*(torch.as_tensor(x) for x in arrays), m, n)
+    want = binned_serial_sum(arrays, m, n)
+    np.testing.assert_array_equal(got.numpy().view(np.int32), want.view(np.int32))
 
 
 def test_paired_binned_cuda_refuses_cpu_tensors():

@@ -1,5 +1,5 @@
-"""Compare the port's column top-k and segment-reduce kernels, and the MCL
-loops that run them, between this checkout and another one, on one card.
+"""Compare the port's column top-k, segment-reduce and k-binned kernels, and
+the runs that use them, between this checkout and another one, on one card.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -19,9 +19,16 @@ DIR holds the files of the commit to compare against (for example
      on every input one n=2^18 sparse MCL batch gives it (batch 0 of the
      second iteration: its multiply step, then its prune, captured and
      replayed), each sum held to the plain version within rtol 1e-5.
-  2. Loops, one process per turn, baseline, this, this, baseline: the dense
-     n=2^14 MCL loop three times (the first run builds the kernels) and the
-     sparse n=2^18 device loop once, with their walls and nnz trajectories.
+  2. Runs, one process per turn, baseline, this, this, baseline, each with
+     that tree's whole package: the dense n=2^14 MCL loop three times (the
+     first run builds the kernels) and the sparse n=2^18 device loop once,
+     with their walls and nnz trajectories; the default (k-binned) n=2^14
+     product three times (walls), then the binned multiply on its batch 0
+     (chip_smoke.py's binned check: device time of the wrapper per call,
+     mean of 5 profiled calls, and a checksum of C's bits), and the sparse
+     n=2^14 MCL loop on that multiply three times (walls, nnz), then once
+     more with every binned call's inputs captured, which are replayed and
+     profiled (device time per call, mean over the loop's calls).
 
 Inputs, batches and timers are this checkout's chip_smoke.py helpers, in
 both trees' turns.
@@ -58,9 +65,14 @@ def use_tree(root: Path):
 
 def loops(label: str, C) -> None:
     """Part 2 in this process, for the tree ``C`` was loaded over."""
+    import dataclasses
+
     import torch
 
+    from repro_torch.core import gen
+    from repro_torch.core.distsparse import scatter_to_grid
     from repro_torch.core.grid import make_grid
+    from repro_torch.kernels import spgemm_binned as Bn
     from repro_torch.sparse_apps import mcl
 
     grid = make_grid(1, 1, 1)
@@ -81,6 +93,47 @@ def loops(label: str, C) -> None:
     torch.cuda.synchronize()
     log(f"{label}: sparse n=2^18 device loop wall {time.perf_counter() - t0:.4f} s, iterations "
         f"{[round(h['wall_ms'], 1) for h in hist]} ms, nnz {[h['nnz'] for h in hist]}")
+    del a
+
+    a14 = gen.protein_similarity_like(C.N_DEFAULT, blocks=C.N_DEFAULT // 64, intra_p=0.12, seed=0)
+    A14, B14 = scatter_to_grid(a14, grid, "A"), scatter_to_grid(a14, grid, "B")
+    walls = []
+    for _ in range(3):
+        res, wall, _, _ = C.run_multiply(A14, B14, grid, 48 * int(a14.nnz), "auto")
+        walls.append(round(wall, 4))
+    a_cat, b_cat = C.batch0_operands(A14, B14, grid, res.plan)
+    bin_of_k = torch.as_tensor(res.plan.kbin.bin_of_k, device=a_cat.device)
+    args = C.binned_operands(a_cat, b_cat, res.binned_caps, bin_of_k)
+    out = Bn.spgemm_paired_binned_cuda(*args)
+    bits = int(out.view(torch.int32).sum(dtype=torch.int64))
+    ms = C.device_ms(lambda: Bn.spgemm_paired_binned_cuda(*args), 1, "", 5)
+    log(f"{label}: auto n=2^14 product ({res.local_path}, b={res.plan.num_batches}) walls "
+        f"{walls} s; binned multiply on batch 0: {ms:.6f} ms device time, C bits sum {bits}")
+    a, cfg = C.mcl_dense_input()
+    sparse = dataclasses.replace(cfg, path="sparse")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = mcl.mcl_iterate(a, grid, sparse)
+        torch.cuda.synchronize()
+        walls.append(round(time.perf_counter() - t0, 4))
+    log(f"{label}: sparse n=2^14 loop ({hist[0]['local_path']}) walls {walls} s, "
+        f"nnz {[h['nnz'] for h in hist]}")
+    captured, dispatch = [], Bn.spgemm_paired_binned
+
+    def capture(*call):
+        captured.append(tuple(x.clone() if torch.is_tensor(x) else x for x in call))
+        return dispatch(*call)
+
+    Bn.spgemm_paired_binned = capture
+    mcl.mcl_iterate(a, grid, sparse)
+    Bn.spgemm_paired_binned = dispatch
+    ms = C.device_ms(lambda: [Bn.spgemm_paired_binned_cuda(*call) for call in captured],
+                     len(captured), "", 3)
+    shapes = sorted({(call[0].shape, call[3].shape, call[6], call[7]) for call in captured})
+    log(f"{label}: binned multiply in the sparse n=2^14 loop: {len(captured)} calls, "
+        f"{ms:.6f} ms device time per call; shapes (A bins, B bins, m, n) {shapes}")
 
 
 def build(trees: dict) -> dict:
