@@ -3,7 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # phases 1-9, one card
+    python3 chip_smoke.py --chips 4  # phases 1, 2 and 9 at full size, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -92,13 +93,33 @@ Phases (any failed check raises, so the script exits non-zero):
      launch. The dense loop, the sparse loop on its default (binned)
      multiply and the sparse loop on the ESC multiply each run twice and
      must repeat their results bit for bit.
+  9. The multi-process grid: four ranks (repro_torch.launch.spawn), one per
+     point of a 2x2x1 grid, which also build a 1x1x4 grid in the same
+     process group. With no arguments all four share this card over gloo,
+     with CUDA tensors, at n = 2^18; with --chips 4 each has its own card
+     and they talk over NCCL, at n = 2^20. On each shape, under one
+     per-process budget (64 MiB at n = 2^18, scaled with n): C = A·A on the
+     ESC path twice and on the hash path once (at least as many batches as
+     its i32 keys need), every rank's tile held against scipy's A @ A on
+     its rows and columns, the second ESC run against the first bit for
+     bit; every rank must plan the same batches, the fused hash kernel
+     launch once a batch and the segment reduction at least once a batch
+     on every rank. Logs per rank and shape the wall, how often a batch
+     was consumed and b, and, on rank 0's profiled second ESC run, the
+     device time and the NCCL kernels' share of it. With --chips 4 the
+     sparse n = 2^18 MCL device loop then runs on the 2x2x1 grid, held
+     against the same loop on one card (rank 0, first) as in 7: nnz within
+     NNZ_RTOL, chaos within CHAOS_RTOL, identical partitions. A rank that
+     fails fails the run.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
-phase 7's profiled batch) and the JSON result line. Without a CUDA device,
-or without the repository's src/ beside this file, it exits non-zero and
-prints no result.
+phase 7's profiled batch; those two rows also hold each rank's launches in
+phase 9) and the JSON result line; with --chips 4 only the result line.
+Without a CUDA device (or the four cards --chips 4 asks for), or without
+the repository's src/ beside this file, it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -132,6 +153,12 @@ NNZ_RTOL = 1e-5
 PROFILE_MARGIN_S = 0.02  # idle time around a profiled window (see device_ms)
 PROFILE_ATTEMPTS = 3  # profiled runs of one rep before a window without device events fails
 SORT_CALLS = 20  # bitonic sorts per profiled window: one is ~tens of microseconds
+N_GRID = 1 << 18  # the four-rank phase on one card
+GRID_SHAPES = ((2, 2, 1), (1, 1, 4))  # the reference refuses 2x1x2 (pr == pc or l == 1)
+# per-process bytes at n = N_GRID, scaled with n; the same on both shapes:
+# b = 32 on 2x2x1 (its diagonal tiles hold twice 1x1x4's) and 8 on 1x1x4
+GRID_BUDGET = 64 << 20
+GRID_TIMEOUT_S = 600  # one spawn of the distributed phase, every collective included
 
 
 def log(msg: str) -> None:
@@ -1288,13 +1315,230 @@ def check_dense_kernels(a_cat, b_cat, x, k):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 9. the multi-process grid: one process per grid point
+# ---------------------------------------------------------------------------
+def product_tile(key, n, grid):
+    """Which of C's entries (row-major keys) lie in this rank's C tile: rows
+    of row block i, columns of layer slice k of column block j."""
+    i, j, k = grid.coords
+    w = n // grid.pc
+    r, c = key // n, key % n
+    return (r // (n // grid.pr) == i) & (c // w == j) & (c % w // (w // grid.l) == k)
+
+
+def nccl_share(prof, rows=5):
+    """(NCCL kernels' device ms, all device ms, the ``rows`` device ops
+    with the most time as (name, ms)) in a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    per = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            per[ev.name[:80]] = per.get(ev.name[:80], 0.0) + ev.time_range.elapsed_us() / 1e3
+    nccl = sum(ms for name, ms in per.items() if "nccl" in name.lower())
+    return nccl, sum(per.values()), sorted(per.items(), key=lambda kv: -kv[1])[:rows]
+
+
+def hash_batch_floor(n, shape):
+    """The least b at which the hash path's packed (row, column) keys of a
+    (n/pr) x (n/pc/b) product tile fit in i32 (``sortkeys.fits_i32``)."""
+    from repro_torch.core import sortkeys
+
+    tm, tn = n // shape[0], n // shape[1]
+    b = 1
+    while not sortkeys.fits_i32(tm, tn // b):
+        b *= 2
+    return b
+
+
+def run_grid_multiply(A, B, grid, budget, local_path, profile):
+    """One batched_summa3d run on a rank, keeping its tile of every batch in
+    global coordinates and the host time each batch was consumed; with
+    ``profile``, under torch.profiler. The hash path plans at least
+    ``hash_batch_floor`` batches. Returns (result, wall s, batch walls s,
+    parts, ``nccl_share`` of the run or None)."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile as profiler
+
+    from repro_torch.core import batched, convert, specs
+
+    parts, stamps = [], []
+
+    def consume(bi, cb, cm):
+        parts.append(convert.batch_to_global(cb, cm))
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    ctx = (profiler(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profile
+           else contextlib.nullcontext())
+    floor = hash_batch_floor(A.shape[0], (grid.pr, grid.pc, grid.l)) if local_path == "hash" else 1
+    t0 = time.perf_counter()
+    with ctx as prof:
+        res = batched.batched_summa3d(A, B, grid, budget, consumer=consume,
+                                      spec=specs.PlanSpec(local_path=local_path),
+                                      floors=specs.PlanFloors(num_batches=floor))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, np.diff([t0] + stamps), parts, nccl_share(prof) if profile else None
+
+
+def grid_rank(grid, n, budget, with_mcl):
+    """One rank of the distributed phase (spawned, one process per grid
+    point). On each of GRID_SHAPES (the launcher's grid, then the others
+    built in the same process group): this rank's tile of C = A·A on the
+    ESC path twice and on the hash path once, under ``budget`` bytes per
+    process, each held against scipy's A @ A on the tile's rows and
+    columns (structure identical, values within VALUE_RTOL) and the second
+    ESC run against the first bit for bit. Rank 0 profiles the second ESC
+    run. With ``with_mcl``, then the sparse n = 2^18 MCL device loop on
+    the launcher's grid, which rank 0 first runs on a 1x1x1 grid of its
+    own card and holds the grid's loop against. Returns per shape and run
+    the pickled plan, b, wall, per-batch walls, launches and checks."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import gen
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.grid import make_grid
+    from repro_torch.kernels import segment_reduce as S, spgemm_hash as H
+    from repro_torch.sparse_apps import mcl
+
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device=grid.device)
+    t0 = time.perf_counter()
+    ref_key, ref_val = scipy_square(a)
+    if grid.rank == 0:
+        log(f"  grid rank 0: n={n}, scipy A @ A {time.perf_counter() - t0:.1f} s")
+    counted = {"hash_insert": H.hash_expand_insert_cuda, "segment_reduce": S.segment_reduce_cuda}
+    out = {}
+    for shape in GRID_SHAPES:
+        g = grid if shape == (grid.pr, grid.pc, grid.l) else make_grid(*shape, device=grid.device)
+        A, B = scatter_to_grid(a, g, "A"), scatter_to_grid(a, g, "B")
+        mine = product_tile(ref_key, n, g)
+        ref = (ref_key[mine], ref_val[mine])
+        runs, esc_parts = {}, None
+        for label, lp in (("esc", "esc"), ("esc again", "esc"), ("hash", "hash")):
+            for w in counted.values():
+                w.launches = 0
+            dist.barrier()
+            res, wall, batch_s, parts, share = run_grid_multiply(
+                A, B, g, budget, lp, profile=g.rank == 0 and label == "esc again")
+            runs[label] = {
+                "plan": pickle.dumps(res.plan), "b": res.plan.num_batches,
+                "retries": res.num_retries, "wall": wall, "batch_s": batch_s,
+                "launches": {name: w.launches for name, w in counted.items()},
+                "max_rel_err": check_product(parts, ref, n), "entries": len(ref[0]),
+                "share": share,
+            }
+            if g.rank == 0:
+                log(f"  grid {shape} {label}, rank 0: b={res.plan.num_batches}, wall {wall:.2f} s")
+            if label == "esc":
+                esc_parts = parts
+            elif label == "esc again":
+                runs[label]["bit_identical"] = same_parts(esc_parts, parts)
+            del parts
+        out[shape] = runs
+        del A, B, esc_parts
+        torch.cuda.empty_cache()
+    if with_mcl:
+        a, cfg = mcl_sparse_input()
+        one = None
+        if grid.rank == 0:
+            one = run_mcl(mcl.mcl_iterate, a, make_grid(1, 1, 1, device=grid.device), cfg,
+                          "mcl sparse n=2^18, one card (rank 0)")
+        dist.barrier()
+        fin, hist, wall, peak, launches = run_mcl(
+            mcl.mcl_iterate, a, grid, cfg, f"mcl sparse n=2^18, grid {grid.pr}x{grid.pc}x"
+                                           f"{grid.l}, rank {grid.rank}")
+        out["mcl"] = {"wall": wall, "peak": peak, "launches": launches,
+                      "nnz": [h["nnz"] for h in hist], "batches": [h["batches"] for h in hist]}
+        if one is not None:
+            compare_loops("mcl sparse n=2^18, grid vs one card", hist, one[1],
+                          partition(fin, N_MCL), partition(one[0], N_MCL), chaos_rtol=CHAOS_RTOL)
+            check_mcl_matrix(fin, cfg.max_per_col)
+            out["mcl"].update(one_card_wall=one[2], one_card_batches=[
+                h["batches"] for h in one[1]])
+    return out
+
+
+def grid_phase(n, backend, with_mcl):
+    """Phase 9: ``grid_rank`` on four ranks, one per grid point, over
+    ``backend`` (gloo: all four on this card; nccl: one per card). Checks
+    that every rank planned the same batches, that the second ESC run of
+    every rank repeated the first bit for bit, and that the hash kernel
+    launched once a batch and the segment reduction at least once a batch
+    on every rank; logs per rank and shape the wall, the batch walls and
+    b. Returns the per-rank launches of the two kernels, by shape and run."""
+    from repro_torch.launch import spawn
+
+    t0 = time.perf_counter()
+    workdir = Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+    budget = GRID_BUDGET * n // N_GRID
+    ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
+                      args=(n, budget, with_mcl), timeout_s=GRID_TIMEOUT_S, workdir=workdir)
+    launches = {}
+    for shape in GRID_SHAPES:
+        tag = "x".join(map(str, shape))
+        for label in ("esc", "esc again", "hash"):
+            per = [r[shape][label] for r in ranks]
+            if any(x["plan"] != per[0]["plan"] for x in per):
+                raise AssertionError(f"grid {tag} {label}: the ranks planned different batches")
+            b = per[0]["b"]
+            kernel = "hash_insert" if label == "hash" else "segment_reduce"
+            counts = [x["launches"][kernel] for x in per]
+            if (label == "hash" and counts != [b] * len(per)) or min(counts) < b:
+                raise AssertionError(f"grid {tag} {label}: {kernel} launches {counts}, b = {b}")
+            if label == "esc again" and not all(x["bit_identical"] for x in per):
+                raise AssertionError(f"grid {tag}: a rank's second ESC run gave other bits")
+            launches[(tag, label)] = counts
+            log(f"grid {tag} n={n} {label} ({backend}): b={b}, retries "
+                f"{[x['retries'] for x in per]}, {kernel} launches per rank {counts}")
+            for r, x in enumerate(per):
+                bs = x["batch_s"]
+                extra = ""
+                if x["share"] is not None:
+                    nccl, dev, top = x["share"]
+                    extra = (f"; profiled: device {dev:.1f} ms ({100 * dev / 1e3 / x['wall']:.1f} "
+                             f"% of wall), NCCL kernels {nccl:.1f} ms ({100 * nccl / dev:.1f} "
+                             f"% of device time); top: "
+                             + "; ".join(f"{name} {ms:.1f} ms" for name, ms in top))
+                log(f"  rank {r}: wall {x['wall']:.3f} s, a batch consumed every "
+                    f"{1e3 * bs.mean():.2f} ms (min {1e3 * bs.min():.2f}, max "
+                    f"{1e3 * bs.max():.2f}; the first also waits for the plan), {x['entries']} "
+                    f"entries of C, max rel err {x['max_rel_err']:.3g}{extra}")
+    if with_mcl:
+        for r, x in enumerate(ranks):
+            m = x["mcl"]
+            log(f"grid mcl rank {r}: wall {m['wall']:.2f} s, peak {m['peak'] / 2**30:.3f} GiB, "
+                f"nnz {m['nnz']}, b {m['batches']}, launches {m['launches']}"
+                + (f"; one card: wall {m['one_card_wall']:.2f} s, b {m['one_card_batches']}"
+                   if "one_card_wall" in m else ""))
+    log(f"phase 9 ({backend}, n={n}): {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
+    import argparse
+
     import torch
 
     started = time.perf_counter()
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on the card.")
+    parser.add_argument("--chips", type=int, choices=(1, 4), default=1,
+                        help="4: only the distributed phase, one rank per card over NCCL")
+    chips = parser.parse_args().chips
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < chips:
+        print(f"chip_smoke: --chips {chips} needs {chips} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
     from repro_torch.core import gen, symbolic
     from repro_torch.core.batched import plan_batches
@@ -1308,8 +1552,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
+    ).stdout.strip().splitlines()[:chips]
+    for line in smi:
+        log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
 
@@ -1320,6 +1565,14 @@ def main() -> int:
     for name, (secs, out) in built.items():
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {secs:.2f} s; " + " | ".join(regs))
+
+    if chips == 4:  # 9 alone: one rank per card over NCCL, at full size
+        grid_phase(N_FULL, "nccl", with_mcl=True)
+        log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. main path
     grid = make_grid(1, 1, 1)
@@ -1437,6 +1690,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    # 9. four ranks on this card over gloo
+    del a_mcl
+    torch.cuda.empty_cache()
+    grid_launches = grid_phase(N_GRID, "gloo", with_mcl=False)
+    per_rank = lambda label: {tag: n for (tag, lab), n in grid_launches.items() if lab == label}
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
     seg_bound, seg_by = bound_ms(seg_bytes, seg_ops)
@@ -1446,7 +1704,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/spgemm_hash.py:159",
          "launches": hash_launches, "max_abs_err": max(h_err, f_err), "ms": f_ms,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
-         "per": "batch: one fused expansion + insert launch"},
+         "per": "batch: one fused expansion + insert launch",
+         "grid_n2^18_launches_per_rank": per_rank("hash")},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_reduce.cu",
          "replaces": "src/repro/core/sortkeys.py:94",
@@ -1454,6 +1713,7 @@ def main() -> int:
          "max_abs_err": max(seg_err, *(s[3] for s in seg_mcl.values())), "ms": seg_ms,
          "plain_ms": seg_plain, "bound_ms": seg_bound, "bound_by": seg_by,
          "library_ms": seg_lib,
+         "grid_n2^18_launches_per_rank": per_rank("esc"),
          "mcl_n2^18_batch": {stage: {"launches": n, "ms": ms, "bound_ms": b,
                                      "max_abs_err": e}
                              for stage, (n, ms, b, e) in seg_mcl.items()}},

@@ -12,4 +12,6 @@ Layering (bottom-up):
   summa3d       one batch of the 3D sparse SUMMA (paper Alg. 2)
   batched       BatchedSUMMA3D + the symbolic step (paper Alg. 3/4)
   convert       moving state between the JAX reference and the port
+
+``repro_torch.launch.spawn`` starts one process per point of a grid.
 """

@@ -6,7 +6,8 @@ The driver follows the paper's phase structure:
      computes per-process flops upper bounds per output column, plus B's
      per-column entry counts (exact selection capacities) and the per-k
      counts of the gathered operands (the k-bin plan's input). Only count
-     vectors reach the host.
+     vectors reach the host, gathered over the whole grid, so every
+     process plans the same batches.
   2. Host-side planning (``plan_from_symbolic``): b from Alg. 3 line 12
      (+ the Eq. 2 lower bound), rounded for block-cyclic divisibility;
      capacities for the numeric pass; the ESC / hash / k-binned decision.
@@ -32,7 +33,7 @@ import numpy as np
 import torch
 
 from . import semiring as sr
-from .distsparse import DistSparse, from_tile
+from .distsparse import DistSparse, from_tile, tile_nnz
 from .grid import COL_AX, ROW_AX, Grid
 from .placement import BLOCK_CYCLIC
 from .sparse import hstack_remap
@@ -76,7 +77,9 @@ def symbolic3d_counts(a: DistSparse, b: DistSparse, grid: Grid) -> SymbolicCount
     Instead of broadcasting tiles, A's per-column counts travel along the
     grid (gathered over columns and rows) and are contracted against this
     process's B entries — the same communicators as the numeric step with a
-    far lighter payload (§IV-A, Fig. 8).
+    far lighter payload (§IV-A, Fig. 8). Every process's count vectors are
+    then gathered over the grid, so each process returns the same global
+    arrays.
     """
     _, tn_b = b.tile_shape
     wl_b, _ = b.tile_shape
@@ -105,13 +108,14 @@ def symbolic3d_counts(a: DistSparse, b: DistSparse, grid: Grid) -> SymbolicCount
     # B per-column entry counts and the per-k counts of the gathered B
     bcc = b_loc.col_counts()
     rc_full = grid.all_gather(b_loc.row_counts(), ROW_AX).reshape(-1)  # (k_tot,)
-    pr, pc, l = grid.pr, grid.pc, grid.l
-    as64 = lambda x: _host(x).astype(np.int64)
+    # cc_full depends on (row block, layer) only, rc_full on (column block,
+    # layer) only: slice the redundant grid axis away
+    grid_host = lambda x: _host(grid.gather_grid(x)).astype(np.int64)
     return SymbolicCounts(
-        percol=as64(percol).reshape(pr, pc, l, tn_b),
-        b_colcounts=as64(bcc).reshape(pr, pc, l, tn_b),
-        a_kcounts=as64(cc_full).reshape(pr, l, k_tot),
-        b_kcounts=as64(rc_full).reshape(pc, l, k_tot),
+        percol=grid_host(percol),
+        b_colcounts=grid_host(bcc),
+        a_kcounts=grid_host(cc_full)[:, 0],  # (pr, l, k_tot)
+        b_kcounts=grid_host(rc_full)[0],  # (pc, l, k_tot)
     )
 
 
@@ -158,7 +162,7 @@ def plan_batches(
     spec = spec if spec is not None else PlanSpec(local_path="esc")
     floors = floors if floors is not None else PlanFloors()
     counts = symbolic3d_counts(a, b, grid)
-    nnz_a, nnz_b = _host(a.nnz), _host(b.nnz)
+    nnz_a, nnz_b = tile_nnz(a, grid), tile_nnz(b, grid)
     inputs = PlanInputs(
         tm_a=a.tile_shape[0],
         max_nnz_a=int(nnz_a.max()),
@@ -488,8 +492,8 @@ def batched_summa3d(
     """Multiply A·B in batches; the consumer sees each batch, then it is freed.
 
     ``consumer(batch_idx, c_batch, global_col_map)`` receives per batch,
-    in batch order, a C-kind ``DistSparse`` (``path="sparse"``) or the
-    stacked dense (pr, pc, l, tm, wb/l) f32 tiles (``path="dense"``: the
+    in batch order, a C-kind ``DistSparse`` (``path="sparse"``) or this
+    process's dense f32 tile as (1, 1, 1, tm, wb/l) (``path="dense"``: the
     densify + SpMM local multiply, sum monoids only) — or ``postprocess``'s
     output for it. ``spec`` (`PlanSpec`) holds the planning policy,
     ``floors`` (`PlanFloors`) the cross-run capacity pins, ``exec_spec`` (`ExecSpec`)
@@ -562,8 +566,8 @@ def batched_summa3d(
     retries = 0
     rep = {"sel_retries": 0, "replans": 0, "ladder_blocked": 0, "degraded": []}
 
-    max_nnz_a = int(_host(a.nnz).max())
-    max_nnz_b = int(_host(b.nnz).max())
+    max_nnz_a = int(tile_nnz(a, grid).max())
+    max_nnz_b = int(tile_nnz(b, grid).max())
 
     def _footprint(caps_: BatchCaps, sel_cap_: int, hc_) -> int:
         return plan_footprint(

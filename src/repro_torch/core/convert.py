@@ -7,8 +7,8 @@
     ``tile_shape``/``grid_shape``/``kind`` — with the same padding.
   * ``to_numpy`` — the exact padded state of a port object as numpy arrays.
   * ``triplets`` — the live (rows, cols, vals) of a port ``SparseCOO``.
-  * ``batch_to_global`` — one C batch of the driver in global coordinates,
-    on the batch's device.
+  * ``batch_to_global`` — this process's tile of one C batch of the driver
+    in global coordinates, on the batch's device.
   * ``iterate_from_reference`` — an MCL iterate of the JAX package (its
     ``MCLLoopState``: the A/B operands, iteration, chaos, plan floors and
     pinned local path) as the fields of the port's ``MCLLoopState``, so
@@ -63,17 +63,16 @@ def triplets(c: SparseCOO) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def batch_to_global(c: DistSparse, col_map: np.ndarray) -> Tuple[Tensor, Tensor, Tensor]:
-    """One C batch (kind "C", tiles (tm, wb/l)) in global coordinates:
-    (rows i64, cols i64, vals) of its live entries, on the batch's device.
+    """This process's tile of one C batch (kind "C", tiles (tm, wb/l)) in
+    global coordinates: (rows i64, cols i64, vals) of its live entries, on
+    the batch's device.
     ``col_map`` is the driver's ``batch_column_map`` for the batch."""
     tm, _ = c.tile_shape
-    cap = c.cap
-    valid = torch.arange(cap, device=c.device) < c.nnz[..., None]
-    i, j, k, s = torch.nonzero(valid, as_tuple=True)
-    cmap = torch.as_tensor(col_map, dtype=torch.int64, device=c.device)
-    rows = i * tm + c.rows[i, j, k, s].long()
-    cols = cmap[j, k, c.cols[i, j, k, s].long()]
-    return rows, cols, c.vals[i, j, k, s]
+    i, j, k = c.coords
+    t = c.local(i, j, k)
+    live = t.valid_mask()
+    cmap = torch.as_tensor(col_map[j, k], dtype=torch.int64, device=c.device)
+    return i * tm + t.rows[live].long(), cmap[t.cols[live].long()], t.vals[live]
 
 
 def iterate_from_reference(state, device="cuda") -> dict:

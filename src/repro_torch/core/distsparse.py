@@ -1,8 +1,11 @@
 """Distributed sparse matrices on the 3D grid (paper Fig. 1 distributions).
 
-A ``DistSparse`` stores one padded-COO tile per grid point, stacked into
-tensors of shape (pr, pc, l, cap); indices are LOCAL tile coordinates. The
-global↔local maps implement the paper's three distributions:
+A ``DistSparse`` holds the padded-COO tile of this process's grid point,
+stacked into tensors of shape (1, 1, 1, cap); indices are LOCAL tile
+coordinates, ``coords`` the grid point and ``grid_shape`` the whole grid.
+Every tile of one matrix has the same capacity, so tiles gather through
+the grid at a fixed size. The global↔local maps implement the paper's
+three distributions:
 
   kind="A": 2D blocks (w × w), each process-column block split column-wise
             into l layer slices → tile (w × w/l).       [Fig. 1(c,d,e)]
@@ -33,14 +36,15 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class DistSparse:
-    rows: Tensor  # i32[pr, pc, l, cap] — local tile row indices
-    cols: Tensor  # i32[pr, pc, l, cap]
-    vals: Tensor  # f32[pr, pc, l, cap]
-    nnz: Tensor  # i32[pr, pc, l]
+    rows: Tensor  # i32[1, 1, 1, cap] — local tile row indices
+    cols: Tensor  # i32[1, 1, 1, cap]
+    vals: Tensor  # f32[1, 1, 1, cap]
+    nnz: Tensor  # i32[1, 1, 1]
     shape: Tuple[int, int]  # global (m, n)
     tile_shape: Tuple[int, int]  # local (tm, tn)
     grid_shape: Tuple[int, int, int]  # (pr, pc, l)
     kind: str  # "A" | "B" | "C"
+    coords: Tuple[int, int, int] = (0, 0, 0)  # the grid point of the tile held
 
     @property
     def cap(self) -> int:
@@ -51,20 +55,29 @@ class DistSparse:
         return self.rows.device
 
     def local(self, i: int, j: int, k: int) -> SparseCOO:
-        """The tile at grid position (i, j, k)."""
+        """The tile at grid position (i, j, k), which must be this process's."""
+        if (i, j, k) != self.coords:
+            raise ValueError(f"tile {(i, j, k)} lives on another process; this "
+                             f"one holds {self.coords}")
         return SparseCOO(
-            self.rows[i, j, k], self.cols[i, j, k], self.vals[i, j, k],
-            self.nnz[i, j, k], self.tile_shape,
+            self.rows[0, 0, 0], self.cols[0, 0, 0], self.vals[0, 0, 0],
+            self.nnz[0, 0, 0], self.tile_shape,
         )
 
 
 def from_tile(t: SparseCOO, shape: Tuple[int, int], grid: Grid, kind: str) -> DistSparse:
     """The ``DistSparse`` whose tile on this process is ``t``."""
-    stack = lambda x: x.reshape(grid.pr, grid.pc, grid.l, *x.shape)
+    stack = lambda x: x.reshape(1, 1, 1, *x.shape)
     return DistSparse(
         rows=stack(t.rows), cols=stack(t.cols), vals=stack(t.vals), nnz=stack(t.nnz),
         shape=shape, tile_shape=t.shape, grid_shape=(grid.pr, grid.pc, grid.l), kind=kind,
+        coords=grid.coords,
     )
+
+
+def tile_nnz(d: DistSparse, grid: Grid) -> np.ndarray:
+    """Every tile's nnz, (pr, pc, l) on the host."""
+    return _host(grid.gather_grid(d.nnz.reshape(1))).reshape(d.grid_shape)
 
 
 def _host(x: Tensor) -> np.ndarray:
@@ -121,52 +134,58 @@ def scatter_to_grid(
     a: SparseCOO, grid: Grid, kind: str, cap_slack: float = 1.3,
     min_cap: int = 8, cap: Optional[int] = None,
 ) -> DistSparse:
-    """Partition a global SparseCOO into grid tiles (paper Fig. 1) on the
-    grid's device.
+    """Partition a global SparseCOO into grid tiles (paper Fig. 1) and keep
+    this process's tile, on the grid's device. Every process passes the
+    same ``a``.
 
     Capacity = max tile nnz × slack, uniform across tiles (the slack absorbs
-    mild imbalance; the symbolic step sizes the multiply outputs). An
-    explicit ``cap`` overrides the data-derived capacity (it must hold the
-    fullest tile).
+    mild imbalance; the symbolic step sizes the multiply outputs). It comes
+    from the global counts, so every process finds it without talking to
+    the others. An explicit ``cap`` overrides the data-derived capacity (it
+    must hold the fullest tile).
     """
     m, n = a.shape
     pr, pc, l = grid.pr, grid.pc, grid.l
     tile_id, lr, lc, vals, tm, tn, counts = _tile_layout(a, grid, kind)
-    nnz = int(a.nnz)
     if cap is None:
         cap = max(int(np.ceil(counts.max() * cap_slack)), min_cap)
     else:
         assert cap >= counts.max(), (cap, int(counts.max()))
 
-    rows_t = np.full((pr * pc * l, cap), tm, np.int32)
-    cols_t = np.full((pr * pc * l, cap), tn, np.int32)
-    vals_t = np.zeros((pr * pc * l, cap), vals.dtype)
-    order = np.argsort(tile_id, kind="stable")
-    slot = np.arange(nnz) - np.concatenate([[0], np.cumsum(counts)])[tile_id[order]]
-    rows_t[tile_id[order], slot] = lr[order]
-    cols_t[tile_id[order], slot] = lc[order]
-    vals_t[tile_id[order], slot] = vals[order]
+    mine = np.flatnonzero(tile_id == grid.rank)  # in input order, as a stable sort
+    live = len(mine)
+    rows_t = np.full(cap, tm, np.int32)
+    cols_t = np.full(cap, tn, np.int32)
+    vals_t = np.zeros(cap, vals.dtype)
+    rows_t[:live], cols_t[:live], vals_t[:live] = lr[mine], lc[mine], vals[mine]
 
     dev = grid.device
+    stack = lambda x: torch.from_numpy(x.reshape(1, 1, 1, *x.shape)).to(dev)
     return DistSparse(
-        rows=torch.from_numpy(rows_t.reshape(pr, pc, l, cap)).to(dev),
-        cols=torch.from_numpy(cols_t.reshape(pr, pc, l, cap)).to(dev),
-        vals=torch.from_numpy(vals_t.reshape(pr, pc, l, cap)).to(dev),
-        nnz=torch.from_numpy(counts.reshape(pr, pc, l).astype(np.int32)).to(dev),
+        rows=stack(rows_t), cols=stack(cols_t), vals=stack(vals_t),
+        nnz=stack(np.array(live, np.int32)),
         shape=(m, n),
         tile_shape=(tm, tn),
         grid_shape=(pr, pc, l),
         kind=kind,
+        coords=grid.coords,
     )
 
 
-def gather_to_global(d: DistSparse) -> SparseCOO:
-    """Inverse of scatter_to_grid, through the host (tests / small outputs)."""
+def gather_to_global(d: DistSparse, grid: Optional[Grid] = None) -> SparseCOO:
+    """Inverse of scatter_to_grid, through the host (tests / small outputs):
+    the tiles are gathered through ``grid`` (needed on a multi-process
+    grid), and every process gets the whole matrix."""
     m, n = d.shape
     pr, pc, l = d.grid_shape
     tm, tn = d.tile_shape
+    if grid is None and pr * pc * l > 1:
+        raise ValueError("gather_to_global of a multi-process grid's tile needs the grid")
+    tiles = (d.rows, d.cols, d.vals, d.nnz)
+    if grid is not None:
+        tiles = tuple(grid.gather_grid(x[0, 0, 0]) for x in tiles)
     rows_l, cols_l, vals_l = [], [], []
-    R, C, V, N = _host(d.rows), _host(d.cols), _host(d.vals), _host(d.nnz)
+    R, C, V, N = (_host(x) for x in tiles)
     for i in range(pr):
         for j in range(pc):
             for k in range(l):
@@ -238,16 +257,16 @@ def local_col_reduce(
 
 def dist_col_reduce(d: DistSparse, grid: Grid, op: str = "sum") -> Tensor:
     """Per-GLOBAL-column reduction of a ``DistSparse`` on the grid: a
-    (pr, pc, l, tn) stack whose entry [i, j, k, c] is the sum or max over
-    the global column that local column c of tile (i, j, k) belongs to.
-    No host transfer."""
+    (1, 1, 1, tn) stack whose entry c is the sum or max over the global
+    column that local column c of this process's tile belongs to. No host
+    transfer."""
     _, tn = d.tile_shape
     t = d.local(*grid.coords)
     out = local_col_reduce(
         t.vals.float(), t.cols, t.valid_mask(), tn, op, col_reduce_axes(d.kind),
         grid=grid,
     )
-    return out.reshape(grid.pr, grid.pc, grid.l, tn)
+    return out.reshape(1, 1, 1, tn)
 
 
 def dist_col_sums(d: DistSparse, grid: Grid) -> Tensor:

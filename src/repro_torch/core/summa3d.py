@@ -18,10 +18,11 @@ gathered A through it (SpMM), and reduce-scatters the dense D tile along the
 layer axis. ``reassemble_operands`` turns one multiply's batched C outputs
 into the next iteration's A and B on the grid (MCL, paper §V-C).
 
-Every collective goes through the ``Grid``; on the 1×1×1 grid the port
-runs today they are the identity. Padding entries are rewritten to the contraction
-sentinel (k_tot) before gathering, so offset arithmetic cannot alias
-padding onto real coordinates; values are zero as a second guarantee.
+Every collective goes through the ``Grid``, and every process runs this
+code on its own tile; on the 1×1×1 grid the collectives are the identity.
+Padding entries are rewritten to the contraction sentinel (k_tot) before
+gathering, so offset arithmetic cannot alias padding onto real
+coordinates; values are zero as a second guarantee.
 """
 from __future__ import annotations
 
@@ -223,8 +224,9 @@ def summa3d_fused_step(
     ``[selection_overflow, multiply_overflow]``, maximized over the grid;
     nothing here waits for the device, so the driver can enqueue batch i+1
     before it reads batch i's flags. ``c_batch`` is a C-kind ``DistSparse``
-    (``path="sparse"``) or the stacked dense (pr, pc, l, tm, wb/l) f32 tiles
-    (``path="dense"``, sum monoids only; only the selection can overflow).
+    (``path="sparse"``) or this process's dense f32 tile stacked as
+    (1, 1, 1, tm, wb/l) (``path="dense"``, sum monoids only; only the
+    selection can overflow).
     """
     tn_full = b_full.tile_shape[1]
     assert tn_full % num_batches == 0, (tn_full, num_batches)
@@ -241,7 +243,7 @@ def summa3d_fused_step(
         d_tile = spmm(_gather_A(a_loc, grid), _gather_B(sel, grid).to_dense(), semiring)
         c_tile = grid.psum_scatter(d_tile, LAYER_AX, dim=1)  # (tm, wb/l)
         ovf = torch.stack([ovf_sel, torch.zeros_like(ovf_sel)])
-        return c_tile.reshape(grid.pr, grid.pc, grid.l, *c_tile.shape), ovf
+        return c_tile.reshape(1, 1, 1, *c_tile.shape), ovf
     c_tile, ovf_mul = _sparse_tile_body(
         a_loc, sel, grid, caps, semiring,
         kbin=kbin, bin_of_k=bin_of_k, hashc=hashc,

@@ -72,8 +72,9 @@ def col_topk_bounds_cuda(x: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     m, n = x.shape
     out = torch.empty((2, n), dtype=torch.float32, device=x.device)
     fn = _build.entry("col_prune", "col_topk_bounds_launch", _LAUNCH_ARGTYPES)
-    err = fn(x.data_ptr(), m, n, int(k), out.data_ptr(),
-             torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), m, n, int(k), out.data_ptr(),
+                 torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "col_topk_bounds_cuda")
     col_topk_bounds_cuda.launches += 1
     return out[0], out[1]

@@ -57,8 +57,9 @@ def densify_cuda(rows: Tensor, cols: Tensor, vals: Tensor, m: int, n: int) -> Te
         raise ValueError("densify_cuda needs contiguous tensors")
     out = torch.zeros((m, n), dtype=torch.float32, device=dev)
     fn = _build.entry("densify", "densify_launch", _LAUNCH_ARGTYPES)
-    err = fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), rows.shape[0], m, n,
-             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), rows.shape[0], m, n,
+                 out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "densify_cuda")
     densify_cuda.launches += 1
     return out

@@ -76,8 +76,9 @@ def segment_reduce_cuda(vals: Tensor, offsets: Tensor, add_kind: str) -> Tensor:
     num = offsets.numel() - 1
     out = torch.empty((num,), dtype=torch.float32, device=dev)
     fn = _build.entry("segment_reduce", "segment_reduce_launch", _LAUNCH_ARGTYPES)
-    err = fn(vals.data_ptr(), offsets.data_ptr(), num, _ADD_KINDS[add_kind], out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(vals.data_ptr(), offsets.data_ptr(), num, _ADD_KINDS[add_kind], out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "segment_reduce_cuda")
     segment_reduce_cuda.launches += 1
     return out

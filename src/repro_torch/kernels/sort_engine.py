@@ -107,8 +107,9 @@ def bitonic_sort_pairs_cuda(keys: Tensor, vals: Tensor) -> Tuple[Tensor, Tensor]
     if n == 0:
         return keys_out, vals_out
     fn = _build.entry("sort_engine", "bitonic_sort_pairs_launch", _LAUNCH_ARGTYPES)
-    err = fn(keys.data_ptr(), vals.data_ptr(), n, keys_out.data_ptr(), vals_out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(keys.data_ptr(), vals.data_ptr(), n, keys_out.data_ptr(), vals_out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "bitonic_sort_pairs_cuda")
     bitonic_sort_pairs_cuda.launches += 1
     return keys_out, vals_out

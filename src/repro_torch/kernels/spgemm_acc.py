@@ -108,10 +108,11 @@ def spgemm_paired_cuda(
     rank = torch.empty(cap_b, dtype=torch.int32, device=dev)
     records = torch.empty((cap_b, 4), dtype=torch.int32, device=dev)  # (row, col, val bits, 0)
     fn = _build.entry("spgemm_acc", "spgemm_paired_launch", _LAUNCH_ARGTYPES)
-    err = fn(a_rows.data_ptr(), a_cols.data_ptr(), a_vals.data_ptr(), cap_a,
-             b_rows.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(), cap_b, m, n,
-             out.data_ptr(), nb, counts.data_ptr(), offsets.data_ptr(), block_base.data_ptr(),
-             rank.data_ptr(), records.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(a_rows.data_ptr(), a_cols.data_ptr(), a_vals.data_ptr(), cap_a,
+                 b_rows.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(), cap_b, m, n,
+                 out.data_ptr(), nb, counts.data_ptr(), offsets.data_ptr(), block_base.data_ptr(),
+                 rank.data_ptr(), records.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spgemm_paired_cuda")
     spgemm_paired_cuda.launches += 1
     return out

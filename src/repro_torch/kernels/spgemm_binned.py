@@ -163,12 +163,13 @@ def spgemm_paired_binned_cuda(
     a_rec = torch.empty((na, 4), dtype=torch.int32, device=dev)  # (B start, B count, a_val bits, 0)
     b_rec = torch.empty((nb, 2), dtype=torch.int32, device=dev)  # (column, value bits)
     fn = _build.entry("spgemm_binned", "spgemm_paired_binned_launch", _LAUNCH_ARGTYPES)
-    err = fn(
-        a_key.data_ptr(), a_slot.data_ptr(), a_k.data_ptr(), a_vals.data_ptr(), na, bin_cap_a,
-        b_key.data_ptr(), b_slot.data_ptr(), b_cols.data_ptr(), b_vals.data_ptr(), nb, bin_cap_b,
-        m, n, row_start.data_ptr(), a_rec.data_ptr(), b_rec.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = fn(
+            a_key.data_ptr(), a_slot.data_ptr(), a_k.data_ptr(), a_vals.data_ptr(), na,
+            bin_cap_a, b_key.data_ptr(), b_slot.data_ptr(), b_cols.data_ptr(),
+            b_vals.data_ptr(), nb, bin_cap_b, m, n, row_start.data_ptr(), a_rec.data_ptr(),
+            b_rec.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "spgemm_paired_binned_cuda")
     spgemm_paired_binned_cuda.launches += 1
     return out

@@ -169,12 +169,13 @@ def hash_insert_cuda(
         raise ValueError("hash_insert_cuda needs contiguous tensors")
     fn = _build.entry("spgemm_hash", "hash_insert_launch", _LAUNCH_ARGTYPES)
     lg = table_key.shape[0].bit_length() - 1
-    err = fn(
-        table_key.data_ptr(), table_val.data_ptr(), keys.data_ptr(),
-        vals.data_ptr(), valid.data_ptr(), keys.shape[0], lg, max_probes,
-        _ADD_KINDS[add_kind], dropped.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = fn(
+            table_key.data_ptr(), table_val.data_ptr(), keys.data_ptr(),
+            vals.data_ptr(), valid.data_ptr(), keys.shape[0], lg, max_probes,
+            _ADD_KINDS[add_kind], dropped.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "hash_insert_cuda")
     hash_insert_cuda.launches += 1
 
@@ -267,14 +268,15 @@ def hash_expand_insert_cuda(
     if x.a_rows.numel() == 0 or x.cum.numel() == 0 or num_chunks * chunk_cap == 0:
         return
     fn = _build.entry("spgemm_hash", "hash_expand_insert_launch", _EXPAND_ARGTYPES)
-    err = fn(
-        table_key.data_ptr(), table_val.data_ptr(), x.a_rows.data_ptr(), x.a_vals.data_ptr(),
-        x.colptr.data_ptr(), x.b_rows.data_ptr(), x.b_cols.data_ptr(), x.b_vals.data_ptr(),
-        x.cum.data_ptr(), x.a_rows.numel(), x.cum.numel(), x.n, num_chunks * chunk_cap,
-        MUL_KINDS[semiring.mul_kind], table_cap.bit_length() - 1, max_probes,
-        _ADD_KINDS[semiring.add_kind], dropped.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = fn(
+            table_key.data_ptr(), table_val.data_ptr(), x.a_rows.data_ptr(), x.a_vals.data_ptr(),
+            x.colptr.data_ptr(), x.b_rows.data_ptr(), x.b_cols.data_ptr(), x.b_vals.data_ptr(),
+            x.cum.data_ptr(), x.a_rows.numel(), x.cum.numel(), x.n, num_chunks * chunk_cap,
+            MUL_KINDS[semiring.mul_kind], table_cap.bit_length() - 1, max_probes,
+            _ADD_KINDS[semiring.add_kind], dropped.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(err, "hash_expand_insert_cuda")
     hash_expand_insert_cuda.launches += 1
 

@@ -89,9 +89,10 @@ def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Te
     # 4-column vector accesses need B's rows 16-byte (f32) or 8-byte (bf16) aligned
     vec = n % 4 == 0 and b.data_ptr() % (4 * b.element_size()) == 0
     fn = _build.entry("spmm", "spmm_launch", _LAUNCH_ARGTYPES)
-    err = fn(rowptr.data_ptr(), cols_s.data_ptr(), vals_s.data_ptr(), b.data_ptr(),
-             _B_DTYPES[b.dtype], m, n, int(vec), out.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = fn(rowptr.data_ptr(), cols_s.data_ptr(), vals_s.data_ptr(), b.data_ptr(),
+                 _B_DTYPES[b.dtype], m, n, int(vec), out.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spmm_cuda")
     spmm_cuda.launches += 1
     return out

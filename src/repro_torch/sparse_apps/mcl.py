@@ -33,6 +33,18 @@ Usage::
     r, c, _ = convert.triplets(final)
     labels = clusters_from_matrix(r, c, a.shape[0])
 
+On a 2×2×1 grid, one process per card: every rank passes the same ``a``
+and gets the same final matrix (``a_on`` makes ``a`` on the rank's card,
+at module level so that it pickles)::
+
+    from repro_torch.launch import spawn
+
+    def rank_fn(grid, cfg):
+        return convert.triplets(mcl_iterate(a_on(grid.device), grid, cfg)[0])
+
+    per_rank = spawn.run(rank_fn, (2, 2, 1), backend="nccl", device="cuda",
+                         args=(cfg,))
+
 ``history[i]["host_bytes"]`` records the host↔device traffic of iteration
 i: a few stat scalars on the device loop, the whole matrix every batch on
 the host loop.
@@ -108,10 +120,10 @@ def _scatter(a: SparseCOO, grid: Grid, kind: str) -> DistSparse:
     return d
 
 
-def _gather(d: DistSparse) -> SparseCOO:
+def _gather(d: DistSparse, grid: Grid) -> SparseCOO:
     """Device -> host -> device gather of the final matrix, with accounting."""
     _TRANSFER_BYTES[0] += _dist_bytes(d)
-    return distsparse.gather_to_global(d)
+    return distsparse.gather_to_global(d, grid)
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +271,7 @@ def _mcl_prune_sparse(
 
 def _mcl_prune_dense(c_tiles: Tensor, grid: Grid, inflation: float, thresh: float, k: int):
     """Dense-path batch postprocess: inflate + normalize + top-k prune the
-    stacked (pr, pc, l, tm, wbl) C tiles on the device. The per-column top-k
+    (1, 1, 1, tm, wbl) C tile of this process on the device. The per-column top-k
     bracket comes from the ``col_prune`` kernel on the row-gathered column
     block (a batch column is split across the pr row tiles, so the kernel
     sees the full column). Returns (pruned tiles, stats)."""
@@ -420,7 +432,7 @@ def mcl_continue(
         state, _, done = _mcl_sparse_step(state, grid, cfg, verbose)
         if done:
             break
-    return _gather(state.A), state.history
+    return _gather(state.A, grid), state.history
 
 
 def mcl_iterate(
@@ -496,7 +508,7 @@ def _mcl_iterate_dense(
         _record_iter(history, it, nnz, chaos, res, t0, t0_bytes, verbose)
         if chaos < cfg.converge_tol:
             break
-    return _gather(A), history
+    return _gather(A, grid), history
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +521,10 @@ def mcl_iterate_host(
     normalization / pruning / chaos all run on the host (float64), and the
     iterate round-trips host<->device each iteration. The multiply is the
     device loop's: same path, same ``cfg.local_path``, same forced batch
-    count."""
+    count. It runs on a one-process grid."""
+    if grid.p > 1:
+        raise NotImplementedError(
+            f"the host-loop reference runs on a 1x1x1 grid, not {grid.pr}x{grid.pc}x{grid.l}")
     n = a.shape[0]
     cur = a
     history: List[dict] = []

@@ -291,5 +291,6 @@ def test_floors_round_trip_and_grid_scope():
     assert jm.to_meta() == merged.to_meta()
     with pytest.raises(ValueError):
         f1.merged(TFloors(kbin_caps=BinnedCaps(8, 16, 8)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # no process group of four ranks here: a multi-process shape is refused
+    with pytest.raises(RuntimeError, match="process group of 4 ranks, and there is none"):
         t_make_grid(2, 2, 1, device="cpu")

@@ -14,6 +14,8 @@ version run on the CPU. It, the SpMM, the segment reduction and the ESC
 multiply use no atomics on their sums: two calls on the same inputs must
 give the same bits.
 """
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -398,3 +400,142 @@ def test_esc_sums_repeat_bits(cuda_device, engine):
                 torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
             else:
                 assert torch.equal(g.cpu(), w)
+
+
+# ---------------------------------------------------------------------------
+# a card other than the current one, and the grid's ranks on one card
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def second_card():
+    """cuda:1, with cuda:0 the current card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+def _on(dev, *arrays):
+    return [torch.as_tensor(x, device=dev) for x in arrays]
+
+
+def _second_card_case(name, dev):
+    """(wrapper, its calls' results on ``dev``, the plain version's, exact)."""
+    if name == "hash_insert":
+        chunks = random_chunks(seed=11, num_chunks=2, chunk_cap=4096, key_space=3000)
+        got = torch_tables(chunks, 8192, "sum", 32, thash.hash_insert_cuda, dev)
+        want = torch_tables(chunks, 8192, "sum", 32, thash.hash_insert_ref, dev)
+        ko, po = np.argsort(got[0]), np.argsort(want[0])
+        return thash.hash_insert_cuda, (got[0][ko], got[1][ko]), (want[0][po], want[1][po]), False
+    if name == "hash_expand_insert":
+        x, total = tlocal.hash_expansion(*_hash_operands(dev))
+        args = (x, 1 << 16, 4096, -(-int(total) // 4096), tsr.PLUS_TIMES, dev)
+        return (thash.hash_expand_insert_cuda, _expand_insert(thash.hash_expand_insert_cuda, *args),
+                _expand_insert(thash.hash_expand_insert_ref, *args), False)
+    if name == "spgemm_paired_binned":
+        inp = binned_inputs(seed=12, m=300, n=260, k_dim=400, cap_a=5000, cap_b=4000,
+                            num_bins=8, bin_map=True)
+        (ak, ar, av, _), (bk, bc, bv, _) = bin_both(inp, tbinned, torch.as_tensor)
+        args = _on(dev, ar, ak, av, bk, bc, bv)
+        m, n = inp["m"], inp["n"]
+        return (tbinned.spgemm_paired_binned_cuda, tbinned.spgemm_paired_binned_cuda(*args, m, n),
+                tbinned.spgemm_paired_binned_ref(*(a.cpu() for a in args), m, n), True)
+    if name == "col_topk_bounds":
+        x = torch.as_tensor(prune_block(seed=31, m=3000, n=333, kind="random"), device=dev)
+        return (tprune.col_topk_bounds_cuda, tprune.col_topk_bounds_cuda(x, 7),
+                tprune.col_topk_bounds_ref(x, 7), True)
+    if name in ("spmm", "densify"):
+        rows, cols, vals = coo_entries(seed=41, m=700, n=900, cap=30000, nnz=25000)
+        args = _on(dev, rows, cols, vals)
+        if name == "densify":
+            return (densify_cuda, densify_cuda(*args, 700, 900), densify_ref(*args, 700, 900),
+                    False)
+        b = torch.as_tensor(np.random.default_rng(45).uniform(-1, 1, (900, 600)),
+                            dtype=torch.float32, device=dev)
+        return spmm_cuda, spmm_cuda(*args, b, 700), spmm_ref(*args, b, 700), False
+    if name == "bitonic_sort_pairs":
+        k, v = _on(dev, *sort_keys(seed=5, n=1 << 13, kind="dup"))
+        return (tsort.bitonic_sort_pairs_cuda, tsort.bitonic_sort_pairs_cuda(k, v),
+                tsort.bitonic_sort_pairs_ref(k, v), True)
+    if name == "spgemm_paired":
+        a, b, m, n = paired_case("mixed")
+        args = _on(dev, *a, *b)
+        return (tacc.spgemm_paired_cuda, tacc.spgemm_paired_cuda(*args, m, n),
+                tacc.spgemm_paired_ref(*args, m, n), False)
+    lengths = np.random.default_rng(71).integers(0, 40, 5000)
+    offsets = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    v, off = _on(dev, np.random.default_rng(72).uniform(-1, 1, int(offsets[-1])).astype(
+        np.float32), offsets)
+    return (tseg.segment_reduce_cuda, tseg.segment_reduce_cuda(v, off, "sum"),
+            tseg.segment_reduce_ref(v.cpu(), off.cpu(), "sum"), False)
+
+
+@pytest.mark.parametrize("name", [
+    "hash_insert", "hash_expand_insert", "spgemm_paired_binned", "col_topk_bounds", "spmm",
+    "densify", "bitonic_sort_pairs", "spgemm_paired", "segment_reduce"])
+def test_kernel_on_a_card_that_is_not_current(second_card, name):
+    """Each wrapper launches on its tensors' card, not the current one: on
+    cuda:1 while cuda:0 is current, each matches its plain version (the
+    tolerances of the tests above) and counts one more launch."""
+    wrappers = (thash.hash_insert_cuda, thash.hash_expand_insert_cuda,
+                tbinned.spgemm_paired_binned_cuda, tprune.col_topk_bounds_cuda, spmm_cuda,
+                densify_cuda, tsort.bitonic_sort_pairs_cuda, tacc.spgemm_paired_cuda,
+                tseg.segment_reduce_cuda)
+    before = {w: w.launches for w in wrappers}
+    wrapper, got, want, exact = _second_card_case(name, second_card)
+    torch.cuda.synchronize(second_card)
+    assert torch.cuda.current_device() == 0
+    assert wrapper.launches > before[wrapper]
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if isinstance(g, torch.Tensor):
+            assert g.device == second_card
+            g, w = g.cpu().numpy(), w.cpu().numpy()
+        if exact:
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+        else:
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-5, atol=1e-5)
+
+
+def _gloo_product_rank(grid, n):
+    """One rank of a 4-rank product on one card: its tile of every batch of
+    C = A·A in global coordinates, and its pickled plan."""
+    from repro_torch.core import convert, gen
+    from repro_torch.core.batched import batched_summa3d
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.specs import PlanSpec
+
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device=grid.device)
+    A, B = scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B")
+    parts = []
+    res = batched_summa3d(A, B, grid, 12 * (A.cap + B.cap) + 12 * 4 * n,
+                          consumer=lambda bi, c, cm: parts.append(convert.batch_to_global(c, cm)),
+                          spec=PlanSpec(local_path="esc"))
+    rows, cols, vals = (torch.cat(x).cpu().numpy() for x in zip(*parts))
+    return rows, cols, vals, pickle.dumps(res.plan)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 1), (1, 1, 4)], ids=["2x2x1", "1x1x4"])
+def test_four_gloo_ranks_on_one_card_match_scipy(cuda_device, tmp_path, shape):
+    """Four ranks share one card over gloo with CUDA tensors: the batched
+    ESC product matches scipy (structure exact, values within rtol 1e-4),
+    and every rank planned the same batches."""
+    import scipy.sparse as sps
+
+    from repro_torch.core import gen
+    from repro_torch.launch import spawn
+
+    n = 4096
+    ranks = spawn.run(_gloo_product_rank, shape, backend="gloo", device="cuda", args=(n,),
+                      timeout_s=300, workdir=tmp_path)
+    assert all(r[3] == ranks[0][3] for r in ranks)
+    assert pickle.loads(ranks[0][3]).num_batches > 1
+    rows, cols, vals = (np.concatenate(x) for x in list(zip(*ranks))[:3])
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device="cpu")
+    nnz = int(a.nnz)
+    x = sps.csr_matrix((a.vals[:nnz].numpy(), (a.rows[:nnz].numpy(), a.cols[:nnz].numpy())),
+                       shape=(n, n))
+    want = (x @ x).tocoo()
+    got = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+    assert got.nnz == len(rows) == want.nnz  # each entry once, on one rank
+    np.testing.assert_allclose(got[want.row, want.col].A1, want.data, rtol=1e-4)
