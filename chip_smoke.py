@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-9, one card
+    python3 chip_smoke.py            # phases 1-10, one card (10 runs before 9)
     python3 chip_smoke.py --chips 4  # phases 1, 2 and 9 at full size, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
@@ -106,17 +106,53 @@ Phases (any failed check raises, so the script exits non-zero):
      launch once a batch and the segment reduction at least once a batch
      on every rank. Logs per rank and shape the wall, how often a batch
      was consumed and b, and, on rank 0's profiled second ESC run, the
-     device time and the NCCL kernels' share of it. With --chips 4 the
+     device time and the NCCL kernels' share of it. On each shape every
+     rank also runs triangle_count of the R-MAT graph of 10 (scale 16 over
+     gloo, 18 over NCCL; at least 4 batches and as many as the i32 mask
+     keys need): every rank must plan the same masked batches and count
+     what rank 0 counted first on a 1x1x1 grid of its own card, the hash
+     kernel launching once a batch. With --chips 4 the
      sparse n = 2^18 MCL device loop then runs on the 2x2x1 grid, held
      against the same loop on one card (rank 0, first) as in 7: nnz within
      NNZ_RTOL, chaos within CHAOS_RTOL, identical partitions. A rank that
      fails fails the run.
+ 10. The masked multiply (paper §V-B) on one card, each run with every
+     launch count set to 0 just before and read just after; runs before 9.
+       a. triangle_count (sparse_apps.graph_algorithms) of the symmetrized
+          R-MAT graph of scale 18 (16 edges a vertex, seed 5: 3805033
+          entries in L, 5.78e9 wedges), under the budget at which its masked
+          plan has at least 64 batches (its (tm, wb) mask keys must pack
+          into i32), held to the exact count scipy gives as
+          Σ_r ((L[r] @ U) ⊙ L[r]).sum() over row blocks of L (in a pool of
+          worker processes); logs b, the local path "auto" chose, the wall,
+          the per-batch peak against plan_footprint and the host traffic,
+          which must stay at the mask's count vector plus one scalar a
+          batch. At the reference's probe budget the masked ESC plan must
+          have fewer batches and smaller D and C capacities than the
+          unmasked one.
+       b. the masked L·U at scale 16 through batched_summa3d(spec=
+          PlanSpec(mask=M, local_path=p)), _batch_value_sum as postprocess,
+          for p = esc (twice: bit for bit) and hash (one fused launch a
+          batch), at least 16 batches, no retry: both give scipy's count;
+          each plan beside the unmasked plan under the same budget; a
+          profile of batch 0's masked step on each path.
+       d. the masked fused hash kernel against its plain version on batch 0
+          of b's hash run: strict for sum/min/max in the planned table and
+          complement for sum (same key set, sums within rtol 1e-5, min/max
+          exact, no drops), then timed beside the unmasked kernel on the
+          same batch (CUDA events), with its bound (the mask keys read
+          once).
+       c. overlap_pairs of kmer_like(2^18, 2^23, 64, seed 17) with
+          min_shared 2, without candidates (at least 128 batches) and with
+          a candidate mask of the true pairs plus as many random ones (at
+          least 64 batches: i32 mask keys), both equal to scipy's A·Aᵀ
+          filtered to i < j and shared >= 2.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
 phase 7's profiled batch; those two rows also hold each rank's launches in
-phase 9) and the JSON result line; with --chips 4 only the result line.
+phase 9, and the hash row the masked kernel's numbers from 10) and the JSON result line; with --chips 4 only the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
 result.
@@ -159,6 +195,15 @@ GRID_SHAPES = ((2, 2, 1), (1, 1, 4))  # the reference refuses 2x1x2 (pr == pc or
 # b = 32 on 2x2x1 (its diagonal tiles hold twice 1x1x4's) and 8 on 1x1x4
 GRID_BUDGET = 64 << 20
 GRID_TIMEOUT_S = 600  # one spawn of the distributed phase, every collective included
+TRI_SCALE = 18  # triangle_count in phase 10a and on four cards: R-MAT n = 2^18, 16 edges a vertex
+# the pinned ESC and hash runs of 10b and the gloo grid's triangle count: the ESC
+# path expands its whole unmasked flops capacity every batch (as the reference
+# does), which at scale 18 and b >= 64 (i32 keys) is 64 x 4.9e8 slots, minutes a run
+TRI_PINNED_SCALE = 16
+PINNED_LEAST_B = 16  # 10b plans at least this many batches
+GRID_TRI_LEAST_B = 4  # phase 9's triangle count plans at least this many batches
+KMER = (1 << 18, 1 << 23, 64)  # 10c: sequences, k-mers, k-mers per sequence (~2 a column)
+KMER_LEAST_B = 128  # 10c without candidates: a budget of at least this many batches
 
 
 def log(msg: str) -> None:
@@ -1318,6 +1363,546 @@ def check_dense_kernels(a_cat, b_cat, x, k):
 # ---------------------------------------------------------------------------
 # 9. the multi-process grid: one process per grid point
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# phase 10: the masked multiply and the §V-B applications
+# ---------------------------------------------------------------------------
+_TRI = {}
+
+
+def _tri_init(parts):
+    _TRI.update(parts)
+
+
+def _tri_block(task):
+    name, lo, hi = task
+    lower, upper = _TRI[name]
+    lb = lower[lo:hi]
+    return int(round((lb @ upper).multiply(lb).sum()))
+
+
+class TriangleReference:
+    """scipy's exact triangle counts of several graphs, Σ over row blocks r
+    of L of ((L[r] @ U) ⊙ L[r]).sum() (the unmasked L·U is never held
+    whole), computed in a pool of worker processes while the card works.
+    Use as a context manager: the pool ends with it."""
+
+    def __init__(self, graphs, blocks=256):
+        import multiprocessing
+        import os
+
+        import scipy.sparse as sps
+
+        from repro_torch.core import convert
+
+        parts, tasks, self.stats = {}, [], {}
+        for name, g in graphs.items():
+            n = g.shape[0]
+            r, c, _ = convert.triplets(g)
+            s = sps.csr_matrix((np.ones(len(r)), (r, c)), shape=g.shape)
+            lower, upper = sps.tril(s, k=-1).tocsr(), sps.triu(s, k=1).tocsr()
+            wedges = int((np.bincount(lower.indices, minlength=n).astype(np.int64)
+                          * np.diff(upper.indptr)).sum())
+            self.stats[name] = (lower.nnz, wedges, int(np.diff(s.indptr).max()))
+            parts[name] = (lower, upper)
+            edges = np.linspace(0, n, blocks + 1).astype(np.int64)
+            tasks += [(name, int(lo), int(hi)) for lo, hi in zip(edges[:-1], edges[1:])]
+        self.names = [t[0] for t in tasks]
+        workers = max(1, min(8, (os.cpu_count() or 2) - 1))  # a core left to drive the card
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            workers, initializer=_tri_init, initargs=(parts,))
+        self.pending = self.pool.map_async(_tri_block, tasks)
+
+    def count(self, name) -> int:
+        return sum(x for nm, x in zip(self.names, self.pending.get()) if nm == name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def scipy_overlap_pairs(a, min_shared):
+    """(rows, cols, shared) of A·Aᵀ with row < col and shared ≥ min_shared,
+    row-major, by scipy."""
+    import scipy.sparse as sps
+
+    from repro_torch.core import convert
+
+    r, c, v = convert.triplets(a)
+    s = sps.csr_matrix((v.astype(np.float64), (r, c)), shape=a.shape)
+    p = (s @ s.T).tocoo()
+    keep = (p.row < p.col) & (p.data >= min_shared)
+    rows, cols, vals = p.row[keep], p.col[keep], np.rint(p.data[keep]).astype(np.int64)
+    order = np.lexsort((cols, rows))
+    return rows[order], cols[order], vals[order]
+
+
+def budget_for_batches(A, B, grid, spec, least_b):
+    """The per-process budget, inputs plus 1/d of the loose plan's
+    intermediate bytes for the least d = least_b/2 · 2^i, at which ``spec``
+    plans at least ``least_b`` batches (planning only; every rank of a grid
+    calls it alike). Returns (budget, plan)."""
+    from repro_torch.core.batched import plan_batches
+    from repro_torch.core.distsparse import tile_nnz
+
+    from repro_torch.core.symbolic import estimate_mem_c_bytes
+
+    r = spec.r_bytes
+    inputs = r * (int(tile_nnz(A, grid).max()) + int(tile_nnz(B, grid).max()))
+    loose = plan_batches(A, B, grid, 1 << 62, spec=spec)
+    extra = r * loose.max_unmerged_nnz  # the planner's intermediate bytes at b = 1
+    if loose.local_path == "hash":
+        extra = estimate_mem_c_bytes(loose.max_unmerged_nnz, loose.compression_est, r,
+                                     local_path="hash")
+    d = max(least_b // 2, 1)
+    while True:
+        budget = inputs + max(extra // d, 256)
+        plan = plan_batches(A, B, grid, budget, spec=spec)
+        if plan.num_batches >= least_b:
+            return budget, plan
+        if extra // d < 256:
+            raise RuntimeError(f"no budget plans {least_b} batches for {spec.local_path}")
+        d *= 2
+
+
+def plan_bytes(res, A, B, grid) -> int:
+    """The planner's ``plan_footprint`` of the capacities a run used."""
+    from repro_torch.core.batched import plan_footprint
+    from repro_torch.core.distsparse import tile_nnz
+
+    p = res.plan
+    return plan_footprint(p.caps, p.sel_cap, res.hash_caps, r_bytes=12,
+                          max_nnz_a=int(tile_nnz(A, grid).max()),
+                          max_nnz_b=int(tile_nnz(B, grid).max()))
+
+
+class ObservedDriver:
+    """Wraps graph_algorithms' ``batched_summa3d`` for one run of an entry
+    point: keeps the run's ``BatchedResult`` and the peak device memory
+    between consecutive consumer calls (the pipeline's lookahead batches
+    included; the peak is reset after each), beside the planner's
+    ``plan_footprint`` of the plan it ran."""
+
+    def __init__(self, grid):
+        self.grid, self.peaks, self.result = grid, [], None
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.sparse_apps import graph_algorithms as ga
+
+        self._real = real = ga.batched_summa3d
+
+        def wrapped(*args, consumer, **kw):
+            def consume(bi, x, col_map):
+                out = consumer(bi, x, col_map)
+                self.peaks.append(torch.cuda.max_memory_allocated(self.grid.device))
+                torch.cuda.reset_peak_memory_stats(self.grid.device)
+                return out
+
+            torch.cuda.reset_peak_memory_stats(self.grid.device)
+            self.result = real(*args, consumer=consume, **kw)
+            self.args = args
+            return self.result
+
+        ga.batched_summa3d = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.sparse_apps import graph_algorithms as ga
+
+        ga.batched_summa3d = self._real
+
+    def footprint(self):
+        return plan_bytes(self.result, *self.args[:2], self.grid)
+
+    def summary(self):
+        p = self.result.plan
+        return (f"b={p.num_batches}, path {self.result.local_path}, retries "
+                f"{self.result.num_retries}, caps {p.caps}, hash_caps {self.result.hash_caps}, "
+                f"mask_sel_cap {p.mask_sel_cap}; per-batch peak {max(self.peaks) / 2**30:.3f} "
+                f"GiB (min {min(self.peaks) / 2**30:.3f}) against plan_footprint "
+                f"{self.footprint() / 2**30:.3f} GiB")
+
+
+def counted_kernels():
+    """Launch counters of the kernels the masked multiply can reach."""
+    from repro_torch.kernels import segment_reduce as S, spgemm_binned as Bn
+    from repro_torch.kernels import spgemm_hash as H
+
+    return {"hash": H.hash_expand_insert_cuda, "hash_chunk": H.hash_insert_cuda,
+            "binned": Bn.spgemm_paired_binned_cuda, "segment_reduce": S.segment_reduce_cuda}
+
+
+def triangle_operands(g, grid):
+    """(A = L, B = U, M = L) of ``graph_algorithms.triangle_count``,
+    scattered as it scatters them."""
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    L, U = ga._strict_parts(g)
+    return scatter_to_grid(L, grid, "A"), scatter_to_grid(U, grid, "B"), \
+        scatter_to_grid(L, grid, "C")
+
+
+def triangle_run(g, grid, least_b, label):
+    """``triangle_count`` under the budget at which its masked plan has at
+    least ``least_b`` batches, with every launch count set to 0 just before
+    and read just after. Returns (count, ObservedDriver, launches, wall)."""
+    import torch
+
+    from repro_torch.core.specs import PlanSpec
+    from repro_torch.sparse_apps import graph_algorithms as ga, mcl
+
+    A, B, M = triangle_operands(g, grid)
+    budget, _ = budget_for_batches(A, B, grid, PlanSpec(mask=M), least_b)
+    del A, B, M
+    counters = counted_kernels()
+    for w in counters.values():
+        w.launches = 0
+    mcl.reset_transfer_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ObservedDriver(grid) as obs:
+        count = ga.triangle_count(g, grid, per_process_memory=budget)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in counters.items()}
+    moved = mcl.transfer_bytes()
+    pr, pc, l = grid.pr, grid.pc, grid.l
+    mask_pull = pr * pc * l * (g.shape[1] // pc // l) * 4
+    nb = obs.result.plan.num_batches
+    if moved > mask_pull + 8 * nb:
+        raise AssertionError(f"{label}: {moved} B crossed to the host, more than the mask's "
+                             f"count vector ({mask_pull} B) and one scalar a batch")
+    log(f"{label}: {count} triangles, budget {budget} B, {obs.summary()}, wall {wall:.2f} s, "
+        f"transfer {moved} B (mask counts {mask_pull} B + {nb} scalars), launches {launches}")
+    return count, obs, launches, wall
+
+
+def masked_product(A, B, M, grid, budget, local_path, floor, keep):
+    """The masked L·U through ``batched_summa3d`` with ``_batch_value_sum``
+    as postprocess (the batch is kept beside its sum when ``keep``), every
+    launch count set to 0 just before and read just after. Returns (count,
+    result, launches, wall, per-batch peaks, parts)."""
+    import torch
+
+    from repro_torch.core import batched, convert, specs
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    sums, parts, peaks = [], [], []
+
+    def consume(bi, payload, col_map):
+        c, s = payload
+        sums.append(float(s))
+        if keep:
+            parts.append(convert.batch_to_global(c, col_map))
+        peaks.append(torch.cuda.max_memory_allocated(grid.device))
+        torch.cuda.reset_peak_memory_stats(grid.device)
+
+    counters = counted_kernels()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(grid.device)
+    t0 = time.perf_counter()
+    res = batched.batched_summa3d(
+        A, B, grid, budget, consume, spec=specs.PlanSpec(mask=M, local_path=local_path),
+        floors=specs.PlanFloors(num_batches=floor),
+        postprocess=lambda bi, c: (c, ga._batch_value_sum(c, grid)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (int(round(sum(sums))), res, {n: w.launches for n, w in counters.items()}, wall,
+            peaks, parts)
+
+
+def batch0_mask_keys(M, grid, plan):
+    """Batch 0's mask keys as the fused step builds them on a 1x1x1 grid:
+    the mask's first wbl local columns, sentinel padding, sorted."""
+    from repro_torch.core import sortkeys
+
+    tm, wl = M.tile_shape
+    wbl = wl // plan.num_batches
+    msel, ovf = M.local(*grid.coords).select_col_block(0, wbl, plan.mask_sel_cap)
+    assert int(ovf) == 0
+    return sortkeys.sorted_mask_keys(msel.rows, msel.cols, msel.valid_mask(), (tm, wbl))
+
+
+def check_masked_hash(a_cat, b_cat, keys, hc):
+    """Phase 10d: the masked fused hash kernel (one launch) against its
+    plain version (the chunk loop filtering each chunk by keys_in_sorted,
+    in chunks of 2^22 slots: the same slots the kernel covers) on batch 0
+    of the pinned hash run: strict for sum/min/max in the planned table
+    (same key set, sums within KERNEL_RTOL, min/max exact, no drops), and
+    complement for sum in a table sized for its survivors. Then its time
+    beside the unmasked kernel's on the same batch (its table sized for
+    every distinct key), with the bound. Both are timed with CUDA events
+    around each launch, mean of 10 (each launch takes milliseconds, so the
+    host's launch gap is under a thousandth of it): late in a full run
+    torch.profiler recorded no device event in these windows, 4 times in a
+    row. Returns a dict of numbers."""
+    import torch
+
+    from repro_torch.core import local_spgemm, semiring as sr, symbolic
+    from repro_torch.kernels import spgemm_hash as H
+
+    dev = a_cat.device
+    x, total = local_spgemm.hash_expansion(a_cat, b_cat)
+    limit = hc.num_chunks * hc.chunk_cap
+    chunk = 1 << 22
+    nchunks = -(-limit // chunk)
+
+    def run(fn, xx, table_cap, semi, cc, nc):
+        tk = torch.full((table_cap,), H.EMPTY, dtype=torch.int32, device=dev)
+        tv = torch.full((table_cap,), H.table_init_val(semi.add_kind), device=dev)
+        dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        fn(tk, tv, dropped, xx, cc, nc, semiring=semi, max_probes=hc.max_probes)
+        skey, perm = torch.sort(tk)
+        return skey, tv[perm], int(dropped)
+
+    def table_for(distinct):
+        return symbolic.rup_pow2(max(int(symbolic.HASH_LOAD_FACTOR * distinct), 64))
+
+    unmasked_keys = run(H.hash_expand_insert_cuda, x, table_for(int(total)), sr.PLUS_TIMES,
+                        chunk, nchunks)
+    distinct_all = int((unmasked_keys[0] != H.EMPTY).sum())
+    max_err, out = 0.0, {}
+    cases = [(semi, "strict", hc.table_cap) for semi in (sr.PLUS_TIMES, sr.MIN_PLUS, sr.MAX_TIMES)]
+    cases.append((sr.PLUS_TIMES, "complement", table_for(distinct_all)))
+    for semi, mode, table_cap in cases:
+        xm = x._replace(mask_keys=keys, mask_mode=mode)
+        (kk, kv, kd) = run(H.hash_expand_insert_cuda, xm, table_cap, semi, chunk, nchunks)
+        (pk, pv, pd) = run(H.hash_expand_insert_ref, xm, table_cap, semi, chunk, nchunks)
+        kind = semi.add_kind
+        if kd or pd:
+            raise AssertionError(f"masked hash {mode} {kind}: drops {kd} {pd}")
+        if not torch.equal(kk, pk):
+            raise AssertionError(f"masked hash {mode} {kind}: key sets differ")
+        live = kk != H.EMPTY
+        diff = (kv[live] - pv[live]).abs()
+        err = float(diff.max()) if bool(live.any()) else 0.0
+        max_err = max(max_err, err)
+        ok = (bool((diff <= KERNEL_RTOL * pv[live].abs()).all()) if kind == "sum"
+              else torch.equal(kv[live], pv[live]))
+        if not ok:
+            raise AssertionError(f"masked hash {mode} {kind}: values differ, max {err}")
+        log(f"masked fused hash {mode} {kind}: table {table_cap}, {int(live.sum())} of "
+            f"{distinct_all} keys kept, {int(total)} partial products, max abs err {err:.3g}")
+        out[f"{mode}_keys"] = int(live.sum())
+
+    tk = torch.empty((hc.table_cap,), dtype=torch.int32, device=dev)
+    tv = torch.empty((hc.table_cap,), device=dev)
+    big = table_for(distinct_all)
+    tk_all = torch.empty((big,), dtype=torch.int32, device=dev)
+    tv_all = torch.empty((big,), device=dev)
+    dropped = torch.zeros((), dtype=torch.int32, device=dev)
+    xm = x._replace(mask_keys=keys, mask_mode="strict")
+
+    def reset():
+        for t, v in ((tk, H.EMPTY), (tv, 0.0), (tk_all, H.EMPTY), (tv_all, 0.0)):
+            t.fill_(v)
+
+    masked = lambda: H.hash_expand_insert_cuda(tk, tv, dropped, xm, hc.chunk_cap,
+                                               hc.num_chunks, semiring=sr.PLUS_TIMES,
+                                               max_probes=hc.max_probes)
+    unmasked = lambda: H.hash_expand_insert_cuda(tk_all, tv_all, dropped, x, hc.chunk_cap,
+                                                 hc.num_chunks, semiring=sr.PLUS_TIMES,
+                                                 max_probes=hc.max_probes)
+    reset()
+    masked()
+    unmasked()
+    ms = cuda_ms(masked, 10, reset)
+    ms_all = cuda_ms(unmasked, 10, reset)
+    plain = cuda_ms(lambda: H.hash_expand_insert_ref(tk, tv, dropped, xm, chunk, nchunks,
+                                                     semiring=sr.PLUS_TIMES,
+                                                     max_probes=hc.max_probes), 1, reset)
+    # as the unmasked bound (phase 4), plus the mask keys read once; only
+    # the kept keys' slots are touched
+    cnt = x.cum - torch.cat([x.cum.new_zeros(1), x.cum[:-1]])
+    touched = torch.unique(x.b_cols[cnt > 0]).long()
+    a_needed = int((x.colptr[touched + 1] - x.colptr[touched]).sum())
+    base = 8 * a_needed + 8 * touched.numel() + 16 * x.cum.numel()
+    nbytes = base + 16 * out["strict_keys"] + 4 * keys.numel()
+    flops = min(int(total), limit)
+    bound, by = bound_ms(nbytes, 2 * flops)
+    bound_all, by_all = bound_ms(base + 16 * distinct_all, 2 * flops)
+    log(f"masked fused hash: {ms:.6f} ms per batch, CUDA events ({flops} partial products, "
+        f"{keys.numel()} mask keys), unmasked on the same batch {ms_all:.6f} ms (bound "
+        f"{bound_all:.6f} ms, {by_all}); plain {plain:.3f} ms; bound {bound:.6f} ms ({by}), "
+        f"{100 * bound / ms:.2f} % of bound")
+    out.update(max_abs_err=max_err, ms=ms, unmasked_ms=ms_all, plain_ms=plain, bound_ms=bound,
+               bound_by=by, unmasked_bound_ms=bound_all, flops=flops, mask_keys=keys.numel())
+    return out
+
+
+def masked_phase(grid):
+    """Phase 10 (one card): the exact triangle count at R-MAT scale
+    TRI_SCALE through ``triangle_count``; the masked L·U at scale
+    TRI_PINNED_SCALE pinned to ESC (twice, bit for bit) and to hash (one
+    fused launch a batch) against its count and the unmasked plans; the
+    overlap pairs of a k-mer matrix with and without a candidate mask
+    against scipy; and the masked fused kernel against its plain version on
+    batch 0 of the hash run. Returns the hash row's "masked" entry."""
+    from repro_torch.core import gen
+
+    t_phase = time.perf_counter()
+    graphs = {scale: gen.symmetrized(gen.rmat(scale, edge_factor=16, seed=5, device=grid.device))
+              for scale in (TRI_SCALE, TRI_PINNED_SCALE)}
+    with TriangleReference(graphs) as ref:
+        log(f"10: graphs and the scipy pool started, {time.perf_counter() - t_phase:.1f} s")
+        out = _masked_triangles(grid, graphs, ref)
+    _masked_overlap(grid)
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _masked_triangles(grid, graphs, ref):
+    """Phase 10a, b and d (see ``masked_phase``)."""
+    import torch
+
+    from repro_torch.core import specs, summa3d
+    from repro_torch.core.batched import plan_batches, probe_memory_budget
+
+    out = {}
+    # 10a. triangle_count, default path, at scale TRI_SCALE
+    t0 = time.perf_counter()
+    g = graphs.pop(TRI_SCALE)
+    n = g.shape[0]
+    nnz_l, wedges, top = ref.stats[TRI_SCALE]
+    log(f"10a: R-MAT scale {TRI_SCALE}: n={n}, {int(g.nnz)} nnz, {nnz_l} in L, {wedges} wedges "
+        f"(partial products of L·U), top degree {top}")
+    floor = hash_batch_floor(n, (1, 1, 1))
+    count, obs, launches, wall = triangle_run(g, grid, floor, f"10a triangle_count scale "
+                                              f"{TRI_SCALE}")
+    rp = obs.result
+    want = ref.count(TRI_SCALE)
+    log(f"10a: scipy {want} triangles, waited for by {time.perf_counter() - t0:.1f} s")
+    if count != want:
+        raise AssertionError(f"10a: triangle_count {count} != scipy {want}")
+    if rp.num_retries or (rp.local_path == "hash" and launches["hash"] != rp.plan.num_batches):
+        raise AssertionError(f"10a: retries {rp.num_retries}, launches {launches}")
+    out["launches"] = launches["hash"]
+    # the reference's plan claim at its probe budget (planning only)
+    A, B, M = triangle_operands(g, grid)
+    ppm = probe_memory_budget(A, B, grid)
+    pu = plan_batches(A, B, grid, ppm, spec=specs.PlanSpec(local_path="esc"))
+    pm = plan_batches(A, B, grid, ppm, spec=specs.PlanSpec(mask=M, local_path="esc"))
+    log(f"10a plans at the probe budget {ppm} B, esc: unmasked b={pu.num_batches} {pu.caps}; "
+        f"masked b={pm.num_batches} {pm.caps}")
+    if not (pm.num_batches < pu.num_batches and pm.caps.d_cap < pu.caps.d_cap
+            and pm.caps.c_cap < pu.caps.c_cap):
+        raise AssertionError("10a: the masked plan must have fewer batches and smaller caps")
+    del g, A, B, M
+    torch.cuda.empty_cache()
+    log(f"10a: {time.perf_counter() - t0:.1f} s")
+
+    # 10b. the masked product pinned to ESC and hash, at TRI_PINNED_SCALE
+    t0 = time.perf_counter()
+    g = graphs.pop(TRI_PINNED_SCALE)
+    n = g.shape[0]
+    want = ref.count(TRI_PINNED_SCALE)
+    nnz_l, wedges, _ = ref.stats[TRI_PINNED_SCALE]
+    A, B, M = triangle_operands(g, grid)
+    floor = max(hash_batch_floor(n, (1, 1, 1)), PINNED_LEAST_B)
+    budget, _ = budget_for_batches(A, B, grid, specs.PlanSpec(mask=M, local_path="esc"), floor)
+    log(f"10b: scale {TRI_PINNED_SCALE}: {nnz_l} in L, {wedges} wedges, scipy {want} "
+        f"triangles; budget {budget} B, at least {floor} batches")
+    runs = {}
+    for label, lp, keep in (("esc", "esc", True), ("esc again", "esc", True),
+                            ("hash", "hash", False)):
+        cnt, res, la, w, peaks, parts = masked_product(A, B, M, grid, budget, lp, floor, keep)
+        unmasked = plan_batches(A, B, grid, budget, spec=specs.PlanSpec(local_path=lp),
+                                floors=specs.PlanFloors(num_batches=floor))
+        p = res.plan
+        fp = plan_bytes(res, A, B, grid)
+        log(f"10b {label}: {cnt} triangles, b={p.num_batches}, retries {res.num_retries}, "
+            f"wall {w:.2f} s, launches {la}; masked plan {p.caps} {res.hash_caps} "
+            f"mask_sel_cap {p.mask_sel_cap}; unmasked plan b={unmasked.num_batches} "
+            f"{unmasked.caps} {unmasked.hash_caps}; per-batch peak {max(peaks) / 2**30:.3f} "
+            f"GiB against plan_footprint {fp / 2**30:.3f} GiB")
+        if cnt != want or res.num_retries:
+            raise AssertionError(f"10b {label}: count {cnt} (scipy {want}), retries "
+                                 f"{res.num_retries}")
+        if not (p.caps.d_cap < unmasked.caps.d_cap and p.caps.c_cap < unmasked.caps.c_cap
+                and p.num_batches <= unmasked.num_batches):
+            raise AssertionError(f"10b {label}: the masked plan must not exceed the unmasked")
+        if lp == "hash" and (la["hash"] != p.num_batches or la["hash_chunk"]):
+            raise AssertionError(f"10b hash: one fused launch a batch: {la}")
+        if lp == "esc" and la["segment_reduce"] < p.num_batches:
+            raise AssertionError(f"10b esc: the segment reduction must sum every batch: {la}")
+        runs[label] = (res, parts)
+        out["launches"] += la["hash"]
+    if not same_parts(runs["esc"][1], runs["esc again"][1]):
+        raise AssertionError("10b: the second ESC run gave other bits")
+    log("10b: the second ESC run repeated the first bit for bit")
+    for label in ("esc", "hash"):  # where a masked batch's device time goes
+        res = runs[label][0]
+        p = res.plan
+        step = (lambda p=p, res=res: summa3d.summa3d_fused_step(
+            A, B, 0, None, M, grid=grid, num_batches=p.num_batches, sel_cap=p.sel_cap,
+            caps=p.caps, hashc=res.hash_caps, mask_cap=p.mask_sel_cap))
+        step()
+        profile_top(f"10b {label} batch 0, masked fused step", step, rows=10)
+    log(f"10b: {time.perf_counter() - t0:.1f} s")
+
+    # 10d. the masked fused kernel against its plain version, batch 0 of the hash run
+    t0 = time.perf_counter()
+    rh = runs["hash"][0]
+    a_cat, b_cat = batch0_operands(A, B, grid, rh.plan)
+    keys = batch0_mask_keys(M, grid, rh.plan)
+    out.update(check_masked_hash(a_cat, b_cat, keys, rh.hash_caps))
+    log(f"10d: {time.perf_counter() - t0:.1f} s")
+    del runs, a_cat, b_cat, keys, A, B, M, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def _masked_overlap(grid):
+    """Phase 10c (see ``masked_phase``)."""
+    import torch
+
+    from repro_torch.core import gen, specs
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.sparse import from_numpy_coo
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    # 10c. overlap detection on a k-mer matrix, without and with candidates
+    t0 = time.perf_counter()
+    a = gen.kmer_like(*KMER, seed=17, device=grid.device)
+    nseqs = a.shape[0]
+    wr, wc, wv = scipy_overlap_pairs(a, 2)
+    log(f"10c: k-mers {KMER}: {int(a.nnz)} entries, scipy {len(wr)} pairs with >= 2 shared, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    A = scatter_to_grid(a, grid, "A")
+    B = scatter_to_grid(a.transpose().sort_rowmajor(), grid, "B")
+    rng = np.random.default_rng(23)
+    cr = np.concatenate([wr, rng.integers(0, nseqs, len(wr))])
+    cc = np.concatenate([wc, rng.integers(0, nseqs, len(wr))])
+    cands = from_numpy_coo(cr, cc, np.ones(len(cr), np.float32), (nseqs, nseqs),
+                           device=grid.device)
+    M = scatter_to_grid(cands, grid, "C")
+    budget_u, _ = budget_for_batches(A, B, grid, specs.PlanSpec(), KMER_LEAST_B)
+    budget_m, _ = budget_for_batches(A, B, grid, specs.PlanSpec(mask=M),
+                                     hash_batch_floor(nseqs, (1, 1, 1)))
+    del A, B, M
+    want = list(zip(wr.tolist(), wc.tolist(), wv.tolist()))
+    for label, budget, cand in (("without candidates", budget_u, None),
+                                ("with candidates", budget_m, cands)):
+        t1 = time.perf_counter()
+        with ObservedDriver(grid) as obs:
+            got = ga.overlap_pairs(a, grid, min_shared=2, per_process_memory=budget,
+                                   candidates=cand)
+        torch.cuda.synchronize()
+        log(f"10c overlap_pairs {label}: {len(got)} pairs, budget {budget} B, "
+            f"{obs.summary()}, wall {time.perf_counter() - t1:.2f} s")
+        if got != want or obs.result.num_retries:
+            raise AssertionError(f"10c {label}: {len(got)} pairs, scipy {len(want)}; retries "
+                                 f"{obs.result.num_retries}")
+    log(f"10c: {time.perf_counter() - t0:.1f} s")
+
+
 def product_tile(key, n, grid):
     """Which of C's entries (row-major keys) lie in this rank's C tile: rows
     of row block i, columns of layer slice k of column block j."""
@@ -1385,14 +1970,17 @@ def run_grid_multiply(A, B, grid, budget, local_path, profile):
     return res, wall, np.diff([t0] + stamps), parts, nccl_share(prof) if profile else None
 
 
-def grid_rank(grid, n, budget, with_mcl):
+def grid_rank(grid, n, budget, with_mcl, tri_scale):
     """One rank of the distributed phase (spawned, one process per grid
     point). On each of GRID_SHAPES (the launcher's grid, then the others
     built in the same process group): this rank's tile of C = A·A on the
     ESC path twice and on the hash path once, under ``budget`` bytes per
     process, each held against scipy's A @ A on the tile's rows and
     columns (structure identical, values within VALUE_RTOL) and the second
-    ESC run against the first bit for bit. Rank 0 profiles the second ESC
+    ESC run against the first bit for bit, then ``triangle_count`` of the
+    R-MAT graph of scale ``tri_scale`` (at least GRID_TRI_LEAST_B batches
+    and as many as its i32 mask keys need), which rank 0 first counts on a
+    1x1x1 grid of its own card. Rank 0 profiles the second ESC
     run. With ``with_mcl``, then the sparse n = 2^18 MCL device loop on
     the launcher's grid, which rank 0 first runs on a 1x1x1 grid of its
     own card and holds the grid's loop against. Returns per shape and run
@@ -1415,6 +2003,12 @@ def grid_rank(grid, n, budget, with_mcl):
         log(f"  grid rank 0: n={n}, scipy A @ A {time.perf_counter() - t0:.1f} s")
     counted = {"hash_insert": H.hash_expand_insert_cuda, "segment_reduce": S.segment_reduce_cuda}
     out = {}
+    tri = gen.symmetrized(gen.rmat(tri_scale, edge_factor=16, seed=5, device=grid.device))
+    if grid.rank == 0:
+        one = make_grid(1, 1, 1, device=grid.device)
+        out["tri_one_card"] = triangle_run(
+            tri, one, hash_batch_floor(tri.shape[0], (1, 1, 1)),
+            f"  grid rank 0: triangle_count scale {tri_scale}, one card")[0]
     for shape in GRID_SHAPES:
         g = grid if shape == (grid.pr, grid.pc, grid.l) else make_grid(*shape, device=grid.device)
         A, B = scatter_to_grid(a, g, "A"), scatter_to_grid(a, g, "B")
@@ -1441,6 +2035,16 @@ def grid_rank(grid, n, budget, with_mcl):
             elif label == "esc again":
                 runs[label]["bit_identical"] = same_parts(esc_parts, parts)
             del parts
+        dist.barrier()
+        least = max(hash_batch_floor(tri.shape[0], shape), GRID_TRI_LEAST_B)
+        count, obs, launches, wall = triangle_run(
+            tri, g, least, f"  grid {shape} rank {g.rank}: triangle_count scale {tri_scale}")
+        runs["triangles"] = {
+            "plan": pickle.dumps(obs.result.plan), "b": obs.result.plan.num_batches,
+            "retries": obs.result.num_retries, "wall": wall, "count": count,
+            "path": obs.result.local_path, "launches": {"hash_insert": launches["hash"]},
+            "peak": max(obs.peaks), "footprint": obs.footprint(),
+        }
         out[shape] = runs
         del A, B, esc_parts
         torch.cuda.empty_cache()
@@ -1465,14 +2069,16 @@ def grid_rank(grid, n, budget, with_mcl):
     return out
 
 
-def grid_phase(n, backend, with_mcl):
+def grid_phase(n, backend, with_mcl, tri_scale):
     """Phase 9: ``grid_rank`` on four ranks, one per grid point, over
     ``backend`` (gloo: all four on this card; nccl: one per card). Checks
     that every rank planned the same batches, that the second ESC run of
-    every rank repeated the first bit for bit, and that the hash kernel
+    every rank repeated the first bit for bit, that the hash kernel
     launched once a batch and the segment reduction at least once a batch
-    on every rank; logs per rank and shape the wall, the batch walls and
-    b. Returns the per-rank launches of the two kernels, by shape and run."""
+    on every rank, and that every rank counted the one-card triangle count
+    under the same masked plan; logs per rank and shape the wall, the batch
+    walls and b. Returns the per-rank launches of the two kernels, by shape
+    and run."""
     from repro_torch.launch import spawn
 
     t0 = time.perf_counter()
@@ -1480,10 +2086,28 @@ def grid_phase(n, backend, with_mcl):
     workdir.mkdir(exist_ok=True)
     budget = GRID_BUDGET * n // N_GRID
     ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
-                      args=(n, budget, with_mcl), timeout_s=GRID_TIMEOUT_S, workdir=workdir)
+                      args=(n, budget, with_mcl, tri_scale), timeout_s=GRID_TIMEOUT_S,
+                      workdir=workdir)
     launches = {}
+    want = ranks[0]["tri_one_card"]
     for shape in GRID_SHAPES:
         tag = "x".join(map(str, shape))
+        per = [r[shape]["triangles"] for r in ranks]
+        if any(x["plan"] != per[0]["plan"] for x in per):
+            raise AssertionError(f"grid {tag} triangles: the ranks planned different batches")
+        b = per[0]["b"]
+        counts = [x["launches"]["hash_insert"] for x in per]
+        if ([x["count"] for x in per] != [want] * len(per) or any(x["retries"] for x in per)
+                or (per[0]["path"] == "hash" and counts != [b] * len(per))):
+            raise AssertionError(f"grid {tag} triangles: counts {[x['count'] for x in per]} "
+                                 f"(one card {want}), retries {[x['retries'] for x in per]}, "
+                                 f"hash launches {counts}, b = {b}")
+        launches[(tag, "triangles")] = counts
+        log(f"grid {tag} triangle_count scale {tri_scale} ({backend}): {want} triangles on "
+            f"every rank, as on one card; b={b}, path {per[0]['path']}, hash launches per "
+            f"rank {counts}; walls {[round(x['wall'], 3) for x in per]} s; per-batch peak "
+            f"{max(x['peak'] for x in per) / 2**30:.3f} GiB against plan_footprint "
+            f"{per[0]['footprint'] / 2**30:.3f} GiB")
         for label in ("esc", "esc again", "hash"):
             per = [r[shape][label] for r in ranks]
             if any(x["plan"] != per[0]["plan"] for x in per):
@@ -1567,7 +2191,7 @@ def main() -> int:
         log(f"  {name}: {secs:.2f} s; " + " | ".join(regs))
 
     if chips == 4:  # 9 alone: one rank per card over NCCL, at full size
-        grid_phase(N_FULL, "nccl", with_mcl=True)
+        grid_phase(N_FULL, "nccl", with_mcl=True, tri_scale=TRI_SCALE)
         log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1690,10 +2314,13 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
-    # 9. four ranks on this card over gloo
     del a_mcl
     torch.cuda.empty_cache()
-    grid_launches = grid_phase(N_GRID, "gloo", with_mcl=False)
+    # 10. the masked multiply and the §V-B applications
+    masked = masked_phase(grid)
+    torch.cuda.empty_cache()
+    # 9. four ranks on this card over gloo
+    grid_launches = grid_phase(N_GRID, "gloo", with_mcl=False, tri_scale=TRI_PINNED_SCALE)
     per_rank = lambda label: {tag: n for (tag, lab), n in grid_launches.items() if lab == label}
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
@@ -1702,10 +2329,18 @@ def main() -> int:
         {"name": "hash_insert", "route": "cuda",
          "source": "src/repro_torch/csrc/spgemm_hash.cu",
          "replaces": "src/repro/kernels/spgemm_hash.py:159",
-         "launches": hash_launches, "max_abs_err": max(h_err, f_err), "ms": f_ms,
+         "launches": hash_launches, "max_abs_err": max(h_err, f_err, masked["max_abs_err"]),
+         "ms": f_ms,
          "plain_ms": f_plain, "bound_ms": f_bound, "bound_by": f_by, "library_ms": None,
          "per": "batch: one fused expansion + insert launch",
-         "grid_n2^18_launches_per_rank": per_rank("hash")},
+         "grid_n2^18_launches_per_rank": per_rank("hash"),
+         "grid_triangles_launches_per_rank": per_rank("triangles"),
+         "masked": {"launches": masked["launches"], "ms": masked["ms"],
+                    "plain_ms": masked["plain_ms"], "bound_ms": masked["bound_ms"],
+                    "bound_by": masked["bound_by"], "max_abs_err": masked["max_abs_err"],
+                    "unmasked_ms_same_batch": masked["unmasked_ms"],
+                    "unmasked_bound_ms_same_batch": masked["unmasked_bound_ms"],
+                    "partial_products": masked["flops"], "mask_keys": masked["mask_keys"]}},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/csrc/segment_reduce.cu",
          "replaces": "src/repro/core/sortkeys.py:94",

@@ -5,9 +5,10 @@ The driver follows the paper's phase structure:
   1. SYMBOLIC3D (``symbolic3d_counts``): one pass on the device that
      computes per-process flops upper bounds per output column, plus B's
      per-column entry counts (exact selection capacities) and the per-k
-     counts of the gathered operands (the k-bin plan's input). Only count
-     vectors reach the host, gathered over the whole grid, so every
-     process plans the same batches.
+     counts of the gathered operands (the k-bin plan's input), and a
+     mask's per-tile column counts for a masked plan. Only count vectors
+     reach the host, gathered over the whole grid, so every process plans
+     the same batches.
   2. Host-side planning (``plan_from_symbolic``): b from Alg. 3 line 12
      (+ the Eq. 2 lower bound), rounded for block-cyclic divisibility;
      capacities for the numeric pass; the ESC / hash / k-binned decision.
@@ -71,7 +72,9 @@ def _host(x: Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # Distributed symbolic step (Alg. 3)
 # ---------------------------------------------------------------------------
-def symbolic3d_counts(a: DistSparse, b: DistSparse, grid: Grid) -> SymbolicCounts:
+def symbolic3d_counts(
+    a: DistSparse, b: DistSparse, grid: Grid, mask: Optional[DistSparse] = None,
+) -> SymbolicCounts:
     """Run the symbolic step on the device; see ``SymbolicCounts``.
 
     Instead of broadcasting tiles, A's per-column counts travel along the
@@ -79,7 +82,9 @@ def symbolic3d_counts(a: DistSparse, b: DistSparse, grid: Grid) -> SymbolicCount
     process's B entries — the same communicators as the numeric step with a
     far lighter payload (§IV-A, Fig. 8). Every process's count vectors are
     then gathered over the grid, so each process returns the same global
-    arrays.
+    arrays. ``mask`` (C-layout, the product's shape) adds its exact
+    per-(tile, local column) entry counts, the masked plan's input: only
+    that (pr, pc, l, wl) count array reaches the host, never the mask.
     """
     _, tn_b = b.tile_shape
     wl_b, _ = b.tile_shape
@@ -111,12 +116,33 @@ def symbolic3d_counts(a: DistSparse, b: DistSparse, grid: Grid) -> SymbolicCount
     # cc_full depends on (row block, layer) only, rc_full on (column block,
     # layer) only: slice the redundant grid axis away
     grid_host = lambda x: _host(grid.gather_grid(x)).astype(np.int64)
+    mask_cc = None
+    if mask is not None:
+        assert mask.kind in ("A", "C"), mask.kind
+        assert mask.shape == (a.shape[0], b.shape[1]), (mask.shape, a.shape, b.shape)
+        mask_cc = grid_host(_squeeze_tile(mask, grid).col_counts())
     return SymbolicCounts(
         percol=grid_host(percol),
         b_colcounts=grid_host(bcc),
         a_kcounts=grid_host(cc_full)[:, 0],  # (pr, l, k_tot)
         b_kcounts=grid_host(rc_full)[0],  # (pc, l, k_tot)
+        mask_colcounts=mask_cc,
     )
+
+
+def _mask_tile_colcounts(mask: DistSparse, grid: Grid) -> np.ndarray:
+    """Host oracle of the masked counts ``symbolic3d_counts`` makes on the
+    device: every tile's entries per local column, (pr, pc, l, wl), from the
+    mask's column indices gathered to the host."""
+    C = _host(grid.gather_grid(mask.cols[0, 0, 0]))
+    N = _host(grid.gather_grid(mask.nnz[0, 0, 0]))
+    pr, pc, l, cap = C.shape
+    tn = mask.tile_shape[1]
+    valid = np.arange(cap)[None, None, None, :] < N[..., None]
+    tile = np.arange(pr * pc * l).reshape(pr, pc, l, 1)
+    flat = tile * (tn + 1) + np.where(valid, C, tn)
+    cnt = np.bincount(flat.ravel(), minlength=pr * pc * l * (tn + 1))
+    return cnt.reshape(pr, pc, l, tn + 1)[..., :tn].astype(np.int64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,10 +153,11 @@ class BatchPlan:
     lower_bound: int  # Eq. (2)
     caps: BatchCaps
     total_flops: int  # Σ multiply ops (global)
-    max_unmerged_nnz: int  # max over processes, b=1
+    max_unmerged_nnz: int  # max over processes, b=1 (mask-filtered if masked)
     per_batch_flops: np.ndarray  # (num_batches,) global flops per batch
     sel_cap: int = 0  # exact per-batch selection capacity (B entries)
     kbin: Optional[KBinPlan] = None  # k-bin plan for the paired local multiply
+    mask_sel_cap: int = 0  # exact per-batch mask-slice capacity (masked only)
     local_path: str = "esc"  # plan-driven local-multiply decision
     hash_caps: Optional[HashCaps] = None  # static hash caps (local_path="hash")
     compression_est: float = 1.0  # flops per merged survivor (b=1, max proc)
@@ -161,7 +188,7 @@ def plan_batches(
     """
     spec = spec if spec is not None else PlanSpec(local_path="esc")
     floors = floors if floors is not None else PlanFloors()
-    counts = symbolic3d_counts(a, b, grid)
+    counts = symbolic3d_counts(a, b, grid, mask=spec.mask)
     nnz_a, nnz_b = tile_nnz(a, grid), tile_nnz(b, grid)
     inputs = PlanInputs(
         tm_a=a.tile_shape[0],
@@ -172,6 +199,7 @@ def plan_batches(
         cap_a=a.cap,
         cap_b=b.cap,
         p=grid.p,
+        cap_mask=spec.mask.cap if spec.mask is not None else None,
     )
     return plan_from_symbolic(counts, inputs, per_process_memory, spec, floors)
 
@@ -190,9 +218,10 @@ class PlanInputs:
     cap_a: int  # per-tile capacity of scattered A
     cap_b: int
     p: int  # process count pr*pc*l
+    cap_mask: Optional[int] = None  # per-tile capacity of the scattered mask
 
     @classmethod
-    def from_host(cls, a, b, grid_shape: Tuple[int, int, int],
+    def from_host(cls, a, b, grid_shape: Tuple[int, int, int], mask=None,
                   cap_slack: float = 1.3, min_cap: int = 8) -> "PlanInputs":
         """Scalar facts for a candidate grid from host COO, with capacities
         by ``scatter_to_grid``'s default sizing rule."""
@@ -213,6 +242,8 @@ class PlanInputs:
             cap_a=_cap(ca),
             cap_b=_cap(cb),
             p=pr * pc * l,
+            cap_mask=(_cap(host_tile_counts(mask, grid_shape, "C"))
+                      if mask is not None else None),
         )
 
 
@@ -234,6 +265,14 @@ def plan_from_symbolic(
     keep one plan. ``spec.reserved_bytes`` is taken off the budget first
     (output already committed by the caller). Every fold of per-column
     counts into batches goes through the block-cyclic ``Distribution``.
+
+    A strict mask (``counts.mask_colcounts`` without
+    ``spec.mask_complement``) bounds the survivors per column c of process
+    (i, j, k): unmerged ≤ min(flops[c], mask[c] · nnz(B gathered, c)),
+    merged D ≤ min(flops[c], mask[c]), merged C ≤ min(Σ_k flops[k][c],
+    mask[c]); so the budget, b and the D/piece/C capacities shrink to the
+    survivors. A complement mask cannot tighten them. ``mask_sel_cap``
+    sizes the per-batch mask slice from the exact mask counts.
     """
     r_bytes, slack = spec.r_bytes, spec.slack
     local_path = spec.local_path
@@ -249,15 +288,25 @@ def plan_from_symbolic(
     dist = BLOCK_CYCLIC
     percol = counts.percol  # (pr, pc, l, tn_b)
     pr, pc, l, tn_b = percol.shape
+    masked = counts.mask_colcounts is not None and not spec.mask_complement
+    if masked:
+        # mcount[i, j, c]: mask entries of block (i, j) at block-local column
+        # c — the (l, wl) mask tiles, layer-major, cover the tn_b columns
+        mcount = counts.mask_colcounts.reshape(pr, pc, tn_b)
+        bcolg = counts.b_colcounts.sum(axis=0, keepdims=True)  # (1, pc, l, tn_b)
+        unmerged_percol = np.minimum(percol, mcount[:, :, None, :] * bcolg)
+        merged_d_percol = np.minimum(percol, mcount[:, :, None, :])
+    else:
+        unmerged_percol = merged_d_percol = percol
     per_process_flops = percol.sum(axis=-1)  # (pr, pc, l)
-    max_unmerged = int(per_process_flops.max())
+    max_unmerged = int(unmerged_percol.sum(axis=-1).max())
     total_flops = int(per_process_flops.sum())
 
     # hash-path resident bound (O(output)): the table holds MERGED
     # survivors, and a D-tile column cannot exceed tm_a distinct rows
     assert local_path in ("auto", "esc", "binned", "hash"), local_path
     tm_a = inputs.tm_a
-    max_hash_nnz = int(np.minimum(percol, tm_a).sum(axis=-1).max())
+    max_hash_nnz = int(np.minimum(merged_d_percol, tm_a).sum(axis=-1).max())
     compression_est = max_unmerged / max(max_hash_nnz, 1)
     budget_hash = local_path == "hash" or (
         local_path == "auto" and compression_est >= HASH_CF_THRESHOLD
@@ -289,10 +338,16 @@ def plan_from_symbolic(
     flops_pbp = dist.fold(percol, nb, l)  # (pr,pc,l,nb,l)
     per_batch_proc = flops_pbp.sum(axis=-1)  # (pr,pc,l,nb)
     max_batch_flops = int(per_batch_proc.max())
-    max_batch_d = max_batch_flops
-    max_piece_flops = int(flops_pbp.max())
-    # merged C piece bound: sum over source layers
-    merged_piece = dist.fold(percol.sum(axis=2), nb, l).max()
+    # D-tile bounds from the mask-filtered counts (the filter runs before
+    # the compress, so only survivors take the D buffers)
+    d_pbp = dist.fold(merged_d_percol, nb, l)
+    max_batch_d = int(d_pbp.sum(axis=-1).max())
+    max_piece_flops = int(d_pbp.max())
+    # merged C piece bound: sum over source layers, mask-capped per column
+    merged_col = percol.sum(axis=2)  # (pr, pc, tn_b)
+    if masked:
+        merged_col = np.minimum(merged_col, mcount)
+    merged_piece = dist.fold(merged_col, nb, l).max()
 
     wb = tn_b // nb
     flops_cap = _rup8(max(int(max_batch_flops * slack), 64))
@@ -308,9 +363,18 @@ def plan_from_symbolic(
     sel_per_batch = dist.fold(counts.b_colcounts, nb, l).sum(axis=-1)
     sel_cap = min(_rup8(max(int(sel_per_batch.max()), 8)), inputs.cap_b)
 
+    # exact per-batch mask-slice capacity: batch bi selects the contiguous
+    # local columns [bi·wbl, (bi+1)·wbl) of every mask tile
+    mask_sel_cap = 0
+    if counts.mask_colcounts is not None:
+        per_batch_mask = dist.fold_batch_slices(counts.mask_colcounts, nb)
+        mask_sel_cap = min(_rup8(max(int(per_batch_mask.max()), 8)), inputs.cap_mask)
+
     if floors.caps_pow2:
         caps = BatchCaps(*(_rup_pow2(x) for x in dataclasses.astuple(caps)))
         sel_cap = min(_rup_pow2(sel_cap), inputs.cap_b)
+        if counts.mask_colcounts is not None:
+            mask_sel_cap = min(_rup_pow2(mask_sel_cap), inputs.cap_mask)
     if floors.caps is not None:
         caps = BatchCaps(*(
             max(x, y) for x, y in zip(
@@ -370,6 +434,7 @@ def plan_from_symbolic(
         per_batch_flops=per_batch_proc.sum(axis=(0, 1, 2)),
         sel_cap=sel_cap,
         kbin=kbin,
+        mask_sel_cap=mask_sel_cap,
         local_path=decided,
         hash_caps=hash_caps,
         compression_est=float(compression_est),
@@ -379,6 +444,18 @@ def plan_from_symbolic(
 def _emax_hash(x: HashCaps, y: HashCaps) -> HashCaps:
     return HashCaps(*(max(p, q) for p, q in zip(dataclasses.astuple(x),
                                                  dataclasses.astuple(y))))
+
+
+def probe_memory_budget(
+    a: DistSparse, b: DistSparse, grid: Grid,
+    r_bytes: int = 12, fraction: int = 3, floor: int = 256,
+) -> int:
+    """A per-process budget that makes the unmasked ESC plan batch: inputs
+    plus 1/``fraction`` of the fullest process's unmerged output."""
+    probe = plan_batches(a, b, grid, per_process_memory=1 << 30,
+                         spec=PlanSpec(local_path="esc", r_bytes=r_bytes))
+    inputs = r_bytes * (int(tile_nnz(a, grid).max()) + int(tile_nnz(b, grid).max()))
+    return inputs + max(r_bytes * probe.max_unmerged_nnz // fraction, floor)
 
 
 def batch_column_map(n: int, grid: Grid, num_batches: int, batch: int) -> np.ndarray:
@@ -495,7 +572,7 @@ def batched_summa3d(
     in batch order, a C-kind ``DistSparse`` (``path="sparse"``) or this
     process's dense f32 tile as (1, 1, 1, tm, wb/l) (``path="dense"``: the
     densify + SpMM local multiply, sum monoids only) — or ``postprocess``'s
-    output for it. ``spec`` (`PlanSpec`) holds the planning policy,
+    output for it. ``spec`` (`PlanSpec`) holds the planning policy and the mask,
     ``floors`` (`PlanFloors`) the cross-run capacity pins, ``exec_spec`` (`ExecSpec`)
     the schedule: ``pipelined=True`` enqueues up to ``lookahead`` batches
     ahead of the one whose overflow flags it reads; ``pipelined=False`` is
@@ -509,6 +586,10 @@ def batched_summa3d(
     else ESC); "hash"/"binned"/"esc" force a path. One decision is made per
     plan, never per batch.
 
+    ``spec.mask`` runs the masked multiply (paper §V-B): every batch's step
+    selects the batch's slice of the C-layout mask and keeps C ⊙ M (or
+    C ⊙ ¬M with ``spec.mask_complement``); the mask never leaves the grid.
+
     The retry ladder is bounded by the memory ceiling
     ``max(per_process_memory, footprint(planned caps))``: a batch whose next
     doubling would pass it is replanned as ``d`` sub-batches under a
@@ -519,6 +600,7 @@ def batched_summa3d(
     ex = exec_spec if exec_spec is not None else ExecSpec()
     r_bytes = spec.r_bytes
     local_path = spec.local_path
+    mask, mask_complement = spec.mask, spec.mask_complement
     max_retries = ex.max_retries
     assert local_path in ("auto", "esc", "binned", "hash"), local_path
     assert path in ("sparse", "dense"), path
@@ -562,7 +644,7 @@ def batched_summa3d(
     )
     hc = plan.hash_caps if use_hash else None
 
-    caps, sel_cap = plan.caps, plan.sel_cap
+    caps, sel_cap, mask_cap = plan.caps, plan.sel_cap, plan.mask_sel_cap
     retries = 0
     rep = {"sel_retries": 0, "replans": 0, "ladder_blocked": 0, "degraded": []}
 
@@ -579,25 +661,27 @@ def batched_summa3d(
     # budgets), but the ladder never grows beyond whichever is larger
     ladder_ceiling = max(per_process_memory, _footprint(caps, sel_cap, hc))
 
-    def dispatch(bi: int, caps_: BatchCaps, sel_cap_: int, kb_, hc_,
+    def dispatch(bi: int, caps_: BatchCaps, sel_cap_: int, kb_, hc_, mask_cap_: int,
                  num_batches: int = nb, bok=bin_of_k):
         """Enqueue one fused batch step; nothing waits for the device here."""
         return summa3d_fused_step(
-            a, b, bi, bok, grid=grid, num_batches=num_batches, sel_cap=sel_cap_,
+            a, b, bi, bok, mask, grid=grid, num_batches=num_batches, sel_cap=sel_cap_,
             caps=caps_, semiring=semiring, path=path, kbin=kb_, hashc=hc_,
+            mask_cap=mask_cap_, mask_complement=mask_complement,
         )
 
     # capacities actually used, including retry growth — reported on the
     # returned plan so iterated callers floor their next plan on them
-    used = {"caps": caps, "sel": sel_cap, "kb": kb, "hashc": hc}
+    used = {"caps": caps, "sel": sel_cap, "kb": kb, "hashc": hc, "mask": mask_cap}
 
-    def grow(o: np.ndarray, caps_: BatchCaps, sel_cap_: int, kb_, hc_,
+    def grow(o: np.ndarray, caps_: BatchCaps, sel_cap_: int, kb_, hc_, mask_cap_: int,
              record: bool = True):
         """Next capacity plan after an overflow: selection first (a truncated
-        selection makes the multiply flags unreliable), multiply second.
-        A multiply-cap doubling past the memory ceiling raises
-        `_LadderBlocked`. ``record=False`` (degraded sub-batches)
-        skips the ``used`` bookkeeping."""
+        selection makes the multiply flags unreliable), multiply second; the
+        exact mask-slice capacity doubles with the multiply caps, so the
+        ladder stays monotone. A multiply-cap doubling past the memory
+        ceiling raises `_LadderBlocked`. ``record=False`` (degraded
+        sub-batches) skips the ``used`` bookkeeping."""
         if o[0] > 0:
             sel_cap_ = min(_rup8(max(sel_cap_ * 2, 8)), b.cap)
             rep["sel_retries"] += 1
@@ -612,9 +696,12 @@ def batched_summa3d(
                 )
             caps_, hc_ = cand_caps, cand_hc
             kb_ = kb_.doubled() if kb_ is not None else None
+            if mask is not None:
+                mask_cap_ = min(mask_cap_ * 2, mask.cap)
         if not record:
-            return caps_, sel_cap_, kb_, hc_
+            return caps_, sel_cap_, kb_, hc_, mask_cap_
         used["sel"] = max(used["sel"], sel_cap_)
+        used["mask"] = max(used["mask"], mask_cap_)
         used["caps"] = BatchCaps(*(
             max(x, y) for x, y in zip(
                 dataclasses.astuple(used["caps"]), dataclasses.astuple(caps_)
@@ -628,20 +715,21 @@ def batched_summa3d(
             )
         if hc_ is not None:
             used["hashc"] = _emax_hash(used["hashc"], hc_)
-        return caps_, sel_cap_, kb_, hc_
+        return caps_, sel_cap_, kb_, hc_, mask_cap_
 
-    def run_batch_sync(bi: int, caps_: BatchCaps, sel_cap_: int, kb_, hc_,
+    def run_batch_sync(bi: int, caps_: BatchCaps, sel_cap_: int, kb_, hc_, mask_cap_: int,
                        dispatch_fn=None, record: bool = True):
         """The synchronous retry loop (§IV-A robustness)."""
         nonlocal retries
         dispatch_fn = dispatch_fn or dispatch
         for _ in range(max_retries + 1):
-            c_batch, ovf = dispatch_fn(bi, caps_, sel_cap_, kb_, hc_)
+            c_batch, ovf = dispatch_fn(bi, caps_, sel_cap_, kb_, hc_, mask_cap_)
             o = _host(ovf)
             if not o.any():
                 return c_batch
             retries += 1
-            caps_, sel_cap_, kb_, hc_ = grow(o, caps_, sel_cap_, kb_, hc_, record=record)
+            caps_, sel_cap_, kb_, hc_, mask_cap_ = grow(
+                o, caps_, sel_cap_, kb_, hc_, mask_cap_, record=record)
         raise RuntimeError(
             f"batch {bi}: capacity overflow persisted after {max_retries} retries"
         )
@@ -688,7 +776,7 @@ def batched_summa3d(
                 parts = [
                     run_batch_sync(
                         d_eff * bi + q, sub.caps, sub.sel_cap, sub_kb, sub_hc,
-                        dispatch_fn=sub_dispatch, record=False,
+                        sub.mask_sel_cap, dispatch_fn=sub_dispatch, record=False,
                     )
                     for q in range(d_eff)
                 ]
@@ -703,7 +791,7 @@ def batched_summa3d(
 
     def run_batch_guarded(bi: int):
         try:
-            return run_batch_sync(bi, caps, sel_cap, kb, hc)
+            return run_batch_sync(bi, caps, sel_cap, kb, hc, mask_cap)
         except _LadderBlocked:
             return run_batch_degraded(bi)
 
@@ -722,7 +810,7 @@ def batched_summa3d(
             # the speculatively postprocessed batch was built from a garbage
             # product — recompute synchronously and re-run the hook on it
             try:
-                c_batch = run_batch_sync(bi, *grow(o, caps, sel_cap, kb, hc))
+                c_batch = run_batch_sync(bi, *grow(o, caps, sel_cap, kb, hc, mask_cap))
             except _LadderBlocked:
                 c_batch = run_batch_degraded(bi)
             c_post = post(bi, c_batch)
@@ -735,12 +823,13 @@ def batched_summa3d(
     else:
         window = LookaheadWindow.from_exec(ex, finish)
         for bi in range(nb):
-            c_batch, ovf = dispatch(bi, caps, sel_cap, kb, hc)
+            c_batch, ovf = dispatch(bi, caps, sel_cap, kb, hc, mask_cap)
             window.push(bi, post(bi, c_batch), ovf)
         window.drain()
     # report the capacities actually used (incl. any retry growth)
     plan = dataclasses.replace(
-        plan, caps=used["caps"], sel_cap=used["sel"], hash_caps=used["hashc"],
+        plan, caps=used["caps"], sel_cap=used["sel"], mask_sel_cap=used["mask"],
+        hash_caps=used["hashc"],
     )
     executed = "hash" if use_hash else ("binned" if use_binned else "esc")
     report = RunReport(

@@ -6,7 +6,8 @@ law vs uniform Erdős–Rényi), and compression factor cf = flops / nnz(C).
 
 The generators draw on the host with numpy from an explicit seed, so the
 same seed gives the same matrix as the JAX package's generators; the result
-is moved to ``device`` once.
+is moved to ``device`` once. ``symmetrized`` and ``kmer_like`` make the
+inputs of the §V-B applications (triangle counting, overlap detection).
 """
 from __future__ import annotations
 
@@ -93,3 +94,32 @@ def protein_similarity_like(
     )
     vals = np.random.default_rng(seed + 1).uniform(0.3, 1.0, len(rows)).astype(dtype)
     return from_numpy_coo(rows, cols, vals, (n, n), cap=cap, device=device)
+
+
+def symmetrized(a: SparseCOO) -> SparseCOO:
+    """Undirected unit-weight graph from any square pattern: symmetrize and
+    drop self loops (the triangle-counting input, §V-B). On ``a``'s device."""
+    n = a.shape[0]
+    nnz = int(a.nnz)
+    rows = a.rows[:nnz].cpu().numpy()
+    cols = a.cols[:nnz].cpu().numpy()
+    r2 = np.concatenate([rows, cols])
+    c2 = np.concatenate([cols, rows])
+    keep = r2 != c2
+    return from_numpy_coo(r2[keep], c2[keep], np.ones(int(keep.sum()), np.float32), (n, n),
+                          device=a.device)
+
+
+def kmer_like(
+    nseqs: int, nkmers: int, kmers_per_seq: int, seed: int = 0, dtype=np.float32,
+    cap: int = None, device="cuda",
+) -> SparseCOO:
+    """Rice-k-mers-like rectangular indicator (rows = sequences, columns =
+    k-mers, ~nseqs·kmers_per_seq/nkmers entries per column) for the AAᵀ
+    overlap detection of §V-B."""
+    rng = np.random.default_rng(seed)
+    nnz = nseqs * kmers_per_seq
+    rows = np.repeat(np.arange(nseqs), kmers_per_seq)
+    cols = rng.integers(0, nkmers, nnz)
+    vals = np.ones(nnz, dtype)
+    return from_numpy_coo(rows, cols, vals, (nseqs, nkmers), cap=cap, device=device)

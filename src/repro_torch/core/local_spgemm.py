@@ -14,6 +14,12 @@ sorted C, overflow count) — so the batch plan can pick between them:
     bins, only matching bins paired into a dense f32 block
     (``kernels.spgemm_binned``), then sparsified. plus_times only.
 
+Each takes a mask (paper §V-B): C = (A·B) ⊙ M, or ⊙ ¬M with
+``mask_complement``. ESC and hash filter the partial products against the
+mask's ascending packed keys (``sortkeys.sorted_mask_keys``) before the
+compress or the insert, so products off the mask take no output slot; the
+k-binned multiply filters its dense block (``mask_indicator``).
+
 ``merge_sparse`` is Merge-Layer / Merge-Fiber for the sparse path;
 ``spmm`` (sparse × dense → dense) is the dense path's local multiply, and
 ``spgemm_dense_acc`` (sparse × sparse → dense block) the dense-accumulator
@@ -174,12 +180,19 @@ def spgemm_esc(
     out_cap: int,
     flops_cap: int,
     semiring: sr.Semiring = sr.PLUS_TIMES,
+    mask_keys: Tensor = None,
+    mask_complement: bool = False,
 ) -> Tuple[SparseCOO, Tensor]:
     """Sparse × sparse → sparse via expand–sort–compress.
 
     Inputs need not be sorted (paper §IV-D); only the output is row-major
     sorted. Returns (C, overflow) where overflow > 0 means ``out_cap`` or
     ``flops_cap`` was too small (the caller grows capacities).
+
+    ``mask_keys`` (ascending packed row-major keys of the output space)
+    keeps only the expanded products whose key is one of them (or, with
+    ``mask_complement``, is not), before the compress: exact for every
+    semiring, since the filter commutes with the coordinate-wise merge.
     """
     m, k = a.shape
     k2, n = b.shape
@@ -187,6 +200,9 @@ def spgemm_esc(
     bt = b.transpose()  # B entry (row=k, col=j) -> (row=j, col=k)
     rows, cols, vals, valid, total = _expand(a.sort_colmajor(), bt, flops_cap, semiring)
     flop_overflow = torch.clamp(total - flops_cap, min=0)
+    if mask_keys is not None:
+        hit = sortkeys.keys_in_sorted(sortkeys.pack_rowmajor(rows, cols, n), mask_keys)
+        valid = valid & (~hit if mask_complement else hit)
     nnz_all = torch.tensor(flops_cap, dtype=torch.int32, device=a.device)
     expanded = SparseCOO(rows, cols, vals, nnz_all, (m, n))
     merged, overflow = _coalesce_semiring(expanded, valid, out_cap, semiring)
@@ -205,12 +221,15 @@ def _coalesce_semiring(x: SparseCOO, valid: Tensor, new_cap: int, semiring: sr.S
 # ---------------------------------------------------------------------------
 # Hash-accumulator SpGEMM
 # ---------------------------------------------------------------------------
-def hash_expansion(a: SparseCOO, b: SparseCOO) -> Tuple[hashkern.Expansion, Tensor]:
+def hash_expansion(
+    a: SparseCOO, b: SparseCOO, mask_keys: Tensor = None, mask_complement: bool = False,
+) -> Tuple[hashkern.Expansion, Tensor]:
     """A·B's expansion as ``kernels.spgemm_hash.Expansion`` (A in CSC
     order, B's entries as (j, k), the inclusive prefix of products per B
-    entry) and its total flops. B entries whose contraction index lies
-    outside [0, k) have no products (the reference's clamped gathers give
-    the same for indices at or above k)."""
+    entry, the mask's keys and mode) and its total flops, unmasked. B
+    entries whose contraction index lies outside [0, k) have no products
+    (the reference's clamped gathers give the same for indices at or above
+    k)."""
     k = a.shape[1]
     _, n = b.shape
     a_csc = a.sort_colmajor()
@@ -221,8 +240,9 @@ def hash_expansion(a: SparseCOO, b: SparseCOO) -> Tuple[hashkern.Expansion, Tens
     cnt = torch.where(in_k, ccount_pad[bk], torch.zeros_like(bt.cols))
     cum = torch.cumsum(cnt, 0, dtype=torch.int32)  # inclusive prefix
     total = cum[-1] if bt.cap > 0 else torch.zeros((), dtype=torch.int32, device=a.device)
+    mode = "none" if mask_keys is None else ("complement" if mask_complement else "strict")
     x = hashkern.Expansion(a_csc.rows, a_csc.vals, colptr_pad, bt.rows, bt.cols, bt.vals,
-                           cum, n)
+                           cum, n, mask_keys, mode)
     return x, total
 
 
@@ -232,12 +252,15 @@ def hash_chunks(
     chunk_cap: int,
     num_chunks: int,
     semiring: sr.Semiring = sr.PLUS_TIMES,
+    mask_keys: Tensor = None,
+    mask_complement: bool = False,
 ) -> Tuple[Tensor, Iterator[Tuple[Tensor, Tensor, Tensor]]]:
     """The expansion of A·B in ``num_chunks`` chunks of ``chunk_cap``
     partial products: returns (total flops, iterator over chunks), a chunk
     being (packed row-major keys i32, values, valid) — what the reference's
-    chunk loop inserts, one ``hash_insert`` at a time."""
-    x, total = hash_expansion(a, b)
+    chunk loop inserts, one ``hash_insert`` at a time; under a mask,
+    ``valid`` is already filtered."""
+    x, total = hash_expansion(a, b, mask_keys, mask_complement)
     offs = torch.arange(chunk_cap, dtype=torch.int32, device=a.device)
 
     def chunks():
@@ -256,6 +279,8 @@ def spgemm_hash(
     num_chunks: int,
     semiring: sr.Semiring = sr.PLUS_TIMES,
     max_probes: int = 32,
+    mask_keys: Tensor = None,
+    mask_complement: bool = False,
 ) -> Tuple[SparseCOO, Tensor]:
     """Sparse × sparse → sparse via a hash accumulator — O(output) scratch.
 
@@ -268,7 +293,10 @@ def spgemm_hash(
 
     Output contract matches ``spgemm_esc``: (row-major-sorted C, overflow)
     where overflow counts dropped inserts, enumeration beyond
-    ``num_chunks·chunk_cap`` flops, and ``out_cap`` violations.
+    ``num_chunks·chunk_cap`` flops (unmasked, as the reference counts
+    them), and ``out_cap`` violations. ``mask_keys``/``mask_complement``
+    as in ``spgemm_esc``: filtered products are never inserted (on the
+    card the fused kernel filters them itself).
     """
     m, k = a.shape
     k2, n = b.shape
@@ -281,7 +309,7 @@ def spgemm_hash(
     table_val = torch.full((table_cap,), hashkern.table_init_val(add_kind),
                            dtype=a.vals.dtype, device=dev)
     dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    x, total = hash_expansion(a, b)
+    x, total = hash_expansion(a, b, mask_keys, mask_complement)
     hashkern.hash_expand_insert(table_key, table_val, dropped, x, chunk_cap, num_chunks,
                                 semiring=semiring, max_probes=max_probes)
     flop_overflow = torch.clamp(total - num_chunks * chunk_cap, min=0)
@@ -309,6 +337,8 @@ def spgemm_kbinned(
     bin_cap_b: int,
     bin_of_k: Tensor = None,
     semiring: sr.Semiring = sr.PLUS_TIMES,
+    mask: SparseCOO = None,
+    mask_complement: bool = False,
 ) -> Tuple[SparseCOO, Tensor]:
     """Sparse × sparse → sparse via the k-binned paired kernel.
 
@@ -317,7 +347,9 @@ def spgemm_kbinned(
     matching bins are paired into a dense (m, n) f32 block, which is then
     sparsified to ``out_cap`` entries, row-major sorted — the same output
     contract as ``spgemm_esc``. Requires plus_times. Overflow counts both
-    bin-capacity and ``out_cap`` violations.
+    bin-capacity and ``out_cap`` violations. ``mask`` (a SparseCOO over the
+    output space) zeroes the dense block off the mask (on it, with
+    ``mask_complement``) before the sparsify.
     """
     assert semiring.name == "plus_times", (
         f"k-binned paired multiply requires plus_times, got {semiring.name}"
@@ -335,10 +367,27 @@ def spgemm_kbinned(
         a.rows, a.cols, av, a_valid, b.rows, b.cols, bv, b_valid,
         m, n, k, num_bins, bin_cap_a, bin_cap_b, bin_map=bin_of_k,
     )
+    if mask is not None:
+        dense = torch.where(mask_indicator(mask, mask_complement), dense,
+                            torch.zeros_like(dense))
     # the pairing kernel accumulates f32; restore the input dtype so the
     # binned and ESC paths stay interchangeable behind the plan switch
     c, ovf_out = sparse_mod.from_dense_overflow(dense.to(a.dtype), out_cap)
     return c, ovf_bin + ovf_out
+
+
+def mask_indicator(mask: SparseCOO, complement: bool = False) -> Tensor:
+    """bool (m, n): mask membership as a dense indicator, the complement's
+    when ``complement``. Entries past nnz and sentinel coordinates mark
+    nothing."""
+    m, n = mask.shape
+    valid = mask.valid_mask()
+    rows = torch.where(valid, mask.rows, torch.full_like(mask.rows, m)).long()
+    cols = torch.where(valid, mask.cols, torch.full_like(mask.cols, n)).long()
+    ind = torch.zeros((m + 1, n + 1), dtype=torch.bool, device=mask.device)
+    ind[rows, cols] = True
+    ind = ind[:m, :n]
+    return ~ind if complement else ind
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +443,17 @@ def local_symbolic_flops(a: SparseCOO, b: SparseCOO) -> Tensor:
     ccount_pad, _ = _colptr(a)
     contrib = torch.where(b.valid_mask(), ccount_pad[b.rows.long()], torch.zeros_like(b.rows))
     return contrib.sum()
+
+
+def local_symbolic_exact(a: SparseCOO, b: SparseCOO, flops_cap: int,
+                         engine: str = "auto") -> Tensor:
+    """Exact nnz(A·B): a structure-only ESC whose distinct coordinates are
+    counted by ``sortkeys.count_unique``."""
+    m, _ = a.shape
+    _, n = b.shape
+    rows, cols, _, valid, _ = _expand(a.sort_colmajor(), b.transpose(), flops_cap,
+                                      sr.PLUS_TIMES)
+    return sortkeys.count_unique(rows, cols, valid, (m, n), engine=engine)
 
 
 def nnz_per_col_upper(a_colcounts: Tensor, b: SparseCOO) -> Tensor:

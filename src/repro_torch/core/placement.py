@@ -36,6 +36,11 @@ class Distribution:
         """Fold (..., n) per-column vectors into (..., batch, piece) sums."""
         raise NotImplementedError
 
+    def fold_batch_slices(self, colcounts: np.ndarray, num_batches: int) -> np.ndarray:
+        """Fold (..., wl) C-layout per-column counts into (..., batch) sums:
+        the mask slice each batch selects from a C-layout tile."""
+        raise NotImplementedError
+
     def batch_column_map(
         self, n: int, pc: int, num_layers: int, num_batches: int, batch: int
     ) -> np.ndarray:
@@ -57,6 +62,12 @@ class BlockCyclicDistribution(Distribution):
         self, percol: np.ndarray, num_batches: int, num_layers: int
     ) -> np.ndarray:
         return fold_block_cyclic(percol, num_batches, num_layers)
+
+    def fold_batch_slices(self, colcounts: np.ndarray, num_batches: int) -> np.ndarray:
+        *lead, wl = colcounts.shape
+        wbl = wl // num_batches
+        assert wbl * num_batches == wl, (wl, num_batches)
+        return colcounts.reshape(*lead, num_batches, wbl).sum(axis=-1)
 
     def batch_column_map(
         self, n: int, pc: int, num_layers: int, num_batches: int, batch: int

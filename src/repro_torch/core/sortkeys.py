@@ -68,6 +68,10 @@ def pack_colmajor(rows: Tensor, cols: Tensor, m: int) -> Tensor:
     return cols * (m + 1) + rows
 
 
+def unpack_colmajor(key: Tensor, m: int) -> Tuple[Tensor, Tensor]:
+    return key % (m + 1), key // (m + 1)
+
+
 def stable_sort(key: Tensor) -> Tuple[Tensor, Tensor]:
     """Ascending stable sort; returns (sorted keys, permutation)."""
     return torch.sort(key, stable=True)
@@ -248,6 +252,61 @@ def coalesce_entries(
         okey, ovals, nnz, ovf = _coalesce_packed(key, vals, sent, new_cap, add_kind)
     out_rows, out_cols = unpack_rowmajor(okey, n)
     return out_rows, out_cols, ovals, nnz, ovf
+
+
+def count_unique(
+    rows: Tensor, cols: Tensor, valid: Tensor, shape: Tuple[int, int], engine: str = "auto",
+) -> Tensor:
+    """Number of distinct valid (row, col) coordinates (i32 0-dim), without
+    forming values: the bucket engine scatters presence bits, the packed
+    engine sorts one bare key array, the lexsort engine one int64 key."""
+    m, n = shape
+    eng = choose_engine(m, n, rows.shape[0], engine)
+    if eng == "lexsort":
+        r = torch.where(valid, rows, torch.full_like(rows, m)).long()
+        c = torch.where(valid, cols, torch.full_like(cols, n)).long()
+        key, _ = torch.sort(r * (n + 1) + c)
+        sent = key_space(m, n) - 1
+    else:
+        sent = key_space(m, n) - 1
+        key = torch.where(valid, pack_rowmajor(rows, cols, n), torch.full_like(rows, sent))
+        if eng == "bucket":
+            occ = torch.zeros((sent + 1,), dtype=torch.int32, device=rows.device)
+            occ[key.long()] = 1
+            return occ[:sent].sum().to(torch.int32)
+        key, _ = torch.sort(key)
+    new_key = torch.ones_like(key, dtype=torch.bool)
+    if key.numel() > 1:
+        new_key[1:] = key[1:] != key[:-1]
+    return (new_key & (key < sent)).sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# membership against a sorted key set (masked SpGEMM, paper §V-B)
+# ---------------------------------------------------------------------------
+def keys_in_sorted(keys: Tensor, sorted_keys: Tensor) -> Tensor:
+    """bool: is ``keys[e]`` in the ascending ``sorted_keys``? One
+    ``searchsorted`` and a gather. Sentinel padding of ``sorted_keys`` (the
+    max key) can only match a sentinel query, which callers exclude through
+    their own ``valid``."""
+    cap = sorted_keys.shape[0]
+    if cap == 0:
+        return torch.zeros_like(keys, dtype=torch.bool)
+    pos = torch.searchsorted(sorted_keys, keys, out_int32=True)
+    return sorted_keys[torch.clamp(pos, max=cap - 1).long()] == keys
+
+
+def sorted_mask_keys(rows: Tensor, cols: Tensor, valid: Tensor, shape) -> Tensor:
+    """A mask's packed row-major i32 keys, ascending; padding maps to the
+    sentinel (max) key and sorts to the tail. The key space of ``shape``
+    must pack into i32, as the reference asserts."""
+    m, n = shape
+    assert fits_i32(m, n), (
+        f"masked SpGEMM needs an i32-packable key space, got {m}x{n}"
+    )
+    sent = key_space(m, n) - 1
+    key = torch.where(valid, pack_rowmajor(rows, cols, n), torch.full_like(rows, sent))
+    return torch.sort(key.to(torch.int32)).values
 
 
 # ---------------------------------------------------------------------------

@@ -94,6 +94,21 @@ class SparseCOO:
         return self._sorted_by(lambda r, c: sortkeys.pack_colmajor(r, c, m))
 
     # ------------------------------------------------------------- reshaping
+    def with_capacity(self, new_cap: int) -> "SparseCOO":
+        """Grow (pad with sentinels) or shrink the capacity; shrinking keeps
+        the first ``new_cap`` slots, lossless when nnz <= new_cap."""
+        m, n = self.shape
+        if new_cap >= self.cap:
+            pad = new_cap - self.cap
+            return SparseCOO(
+                torch.cat([self.rows, _full(pad, m, torch.int32, self.device)]),
+                torch.cat([self.cols, _full(pad, n, torch.int32, self.device)]),
+                torch.cat([self.vals, torch.zeros((pad,), dtype=self.dtype, device=self.device)]),
+                self.nnz, self.shape,
+            )
+        return SparseCOO(self.rows[:new_cap], self.cols[:new_cap], self.vals[:new_cap],
+                         torch.clamp(self.nnz, max=new_cap), self.shape)
+
     def compact(self, keep: Tensor, new_cap: int) -> Tuple["SparseCOO", Tensor]:
         """Keep entries where ``keep`` (bool[cap]) is set, repacked densely.
 
@@ -123,6 +138,17 @@ class SparseCOO:
         return out, overflow
 
     # ----------------------------------------------------------- column slicing
+    def select_col_block(self, lo, width: int, new_cap: int):
+        """Entries with lo <= col < lo + width, columns remapped to [0,
+        width), compacted into ``new_cap`` slots. Returns (matrix, overflow)."""
+        m, _ = self.shape
+        keep = (self.cols >= lo) & (self.cols < lo + width)
+        shifted = SparseCOO(
+            self.rows, torch.where(keep, self.cols - lo, torch.full_like(self.cols, width)),
+            self.vals, self.nnz, (m, width),
+        )
+        return shifted.compact(keep, new_cap)
+
     def split_col_blocks(self, num_pieces: int, piece_cap: int):
         """Partitioned ColSplit (Alg. 2 line 4): all ``num_pieces`` column
         pieces in ONE pass.
@@ -210,6 +236,17 @@ class SparseCOO:
         out.index_add_(0, idx.long(), self.valid_mask().to(torch.int32))
         return out[:size]
 
+    # -------------------------------------------------------------- pruning
+    def prune_threshold(self, thresh, new_cap: int):
+        """Drop entries with |val| < thresh (MCL-style pruning)."""
+        return self.compact(torch.abs(self.vals) >= thresh, new_cap)
+
+    def scale_cols(self, scale: Tensor) -> "SparseCOO":
+        """Multiply each column j by scale[j] (padding's sentinel column by 1)."""
+        s = torch.cat([scale, torch.ones((1,), dtype=scale.dtype, device=scale.device)])
+        return SparseCOO(self.rows, self.cols, self.vals * s[self.cols.long()], self.nnz,
+                         self.shape)
+
 
 # ---------------------------------------------------------------------------
 # constructors
@@ -275,6 +312,17 @@ def from_numpy_coo(
         torch.from_numpy(pv).to(device),
         torch.tensor(nnz, dtype=torch.int32, device=device), (m, n),
     )
+
+
+def coalesce(a: SparseCOO, new_cap: int, engine: str = "auto") -> Tuple[SparseCOO, Tensor]:
+    """Sum duplicate (row, col) entries; row-major sorted output through the
+    packed-key engine (``sortkeys.coalesce_entries``). Returns (merged,
+    overflow count)."""
+    rows, cols, vals, nnz, overflow = sortkeys.coalesce_entries(
+        a.rows, a.cols, a.vals, a.valid_mask(), a.shape, new_cap, add_kind="sum",
+        engine=engine,
+    )
+    return SparseCOO(rows, cols, vals, nnz, a.shape), overflow
 
 
 def concat(mats, new_cap: int) -> Tuple[SparseCOO, Tensor]:

@@ -1,21 +1,23 @@
 """Frozen planning/execution specs — the knob surface of the batched driver.
 
-  * ``PlanSpec``   — WHAT to plan: local path, slack, bytes per entry,
-    reserved output bytes, forced batch count, k-bin candidates. Two calls
-    with the same spec and operands give the same ``BatchPlan``.
+  * ``PlanSpec``   — WHAT to plan: the output mask, local path, slack,
+    bytes per entry, reserved output bytes, forced batch count, k-bin
+    candidates. Two calls with the same spec and operands give the same
+    ``BatchPlan``.
   * ``PlanFloors`` — capacity floors carried ACROSS plans, with a monotonic
     ``merged()`` (elementwise max), so iterated callers keep one capacity
     plan as nnz drifts. JSON round-trips via ``to_meta``/``from_meta``.
   * ``ExecSpec``   — HOW to run: pipelined schedule, lookahead depth, retry
     budget.
 
-Masked plans and placement permutations are not ported yet.
+Placement permutations are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
+from .distsparse import DistSparse
 from .summa3d import BatchCaps, BinnedCaps, HashCaps
 
 
@@ -24,8 +26,13 @@ class PlanSpec:
     """Planning policy for one multiply (see ``plan_batches``).
 
     ``local_path`` defaults to "auto" — the plan-driven 3-way dispatch.
+    ``mask`` (a C-layout ``DistSparse`` over the product's shape) runs the
+    masked multiply C = (A·B) ⊙ M, or ⊙ ¬M with ``mask_complement``
+    (paper §V-B): a strict mask also shrinks the plan to the survivors.
     """
 
+    mask: Optional[DistSparse] = None
+    mask_complement: bool = False
     local_path: str = "auto"  # "auto" | "esc" | "binned" | "hash"
     slack: float = 1.3
     r_bytes: int = 12

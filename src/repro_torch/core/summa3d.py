@@ -15,7 +15,10 @@ One call of ``summa3d_fused_step`` computes one batch of the 3D multiply:
 
 The dense path (``path="dense"``) densifies the gathered B once, streams the
 gathered A through it (SpMM), and reduce-scatters the dense D tile along the
-layer axis. ``reassemble_operands`` turns one multiply's batched C outputs
+layer axis. A mask (paper §V-B) enters the step as a C-layout operand: the
+batch's slice of it is gathered along the fiber into the D tile's space,
+and the local multiply filters against it (the dense path zeroes D off
+it). ``reassemble_operands`` turns one multiply's batched C outputs
 into the next iteration's A and B on the grid (MCL, paper §V-C).
 
 Every collective goes through the ``Grid``, and every process runs this
@@ -34,7 +37,10 @@ import torch
 from . import semiring as sr
 from .distsparse import DistSparse, from_tile
 from .grid import COL_AX, LAYER_AX, ROW_AX, Grid
-from .local_spgemm import merge_sparse, spgemm_esc, spgemm_hash, spgemm_kbinned, spmm
+from . import sortkeys
+from .local_spgemm import (
+    mask_indicator, merge_sparse, spgemm_esc, spgemm_hash, spgemm_kbinned, spmm,
+)
 from .sparse import SparseCOO, concat
 
 Tensor = torch.Tensor
@@ -149,6 +155,7 @@ def _sparse_tile_body(
     semiring: sr.Semiring,
     kbin: BinnedCaps = None, bin_of_k: Tensor = None,
     hashc: HashCaps = None,
+    mask: SparseCOO = None, mask_complement: bool = False,
 ) -> Tuple[SparseCOO, Tensor]:
     """Per-process sparse pipeline: gather → local multiply → partitioned
     ColSplit → AllToAll-Fiber → Merge-Fiber.
@@ -157,7 +164,9 @@ def _sparse_tile_body(
     semiring); a ``BinnedCaps`` runs the k-binned paired kernel (plus_times
     only); a ``HashCaps`` runs the hash-accumulator multiply (any semiring).
     All produce a row-major-sorted D tile, so the downstream split/merge
-    invariants are identical.
+    invariants are identical. ``mask`` (a SparseCOO over the D tile's
+    (tm, tn_b) space) filters the local multiply's products, so only
+    survivors take D, piece and C capacity and cross the fiber.
     """
     assert kbin is None or hashc is None, "kbin and hashc are exclusive"
     l = grid.l
@@ -166,10 +175,15 @@ def _sparse_tile_body(
     piece_w = tn_b // l
     a_cat = _gather_A(a_loc, grid)
     b_cat = _gather_B(b_loc, grid)
+    mkeys = None
+    if mask is not None and kbin is None:
+        mkeys = sortkeys.sorted_mask_keys(mask.rows, mask.cols, mask.valid_mask(),
+                                          (tm_a, tn_b))
     if kbin is not None:
         d_tile, ovf_mul = spgemm_kbinned(
             a_cat, b_cat, caps.d_cap, kbin.num_bins, kbin.bin_cap_a,
             kbin.bin_cap_b, bin_of_k=bin_of_k, semiring=semiring,
+            mask=mask, mask_complement=mask_complement,
         )
     elif hashc is not None:
         d_tile, ovf_mul = spgemm_hash(
@@ -177,11 +191,12 @@ def _sparse_tile_body(
             table_cap=hashc.table_cap, chunk_cap=hashc.chunk_cap,
             num_chunks=hashc.num_chunks, semiring=semiring,
             max_probes=hashc.max_probes,
+            mask_keys=mkeys, mask_complement=mask_complement,
         )
     else:
         d_tile, ovf_mul = spgemm_esc(
             a_cat, b_cat, out_cap=caps.d_cap, flops_cap=caps.flops_cap,
-            semiring=semiring,
+            semiring=semiring, mask_keys=mkeys, mask_complement=mask_complement,
         )
     # ColSplit (Alg. 2 line 4): one partitioned split into all l pieces,
     # order-preserving (pieces stay row-major sorted), sized by piece_cap
@@ -208,6 +223,7 @@ def summa3d_fused_step(
     b_full: DistSparse,
     batch: int,
     bin_of_k: Tensor = None,
+    mask: DistSparse = None,
     *,
     grid: Grid,
     num_batches: int,
@@ -217,6 +233,8 @@ def summa3d_fused_step(
     path: str = "sparse",
     kbin: BinnedCaps = None,
     hashc: HashCaps = None,
+    mask_cap: int = 0,
+    mask_complement: bool = False,
 ):
     """Batch-select + SUMMA3D multiply for batch ``batch`` (Alg. 4 lines 5-6).
 
@@ -226,12 +244,22 @@ def summa3d_fused_step(
     before it reads batch i's flags. ``c_batch`` is a C-kind ``DistSparse``
     (``path="sparse"``) or this process's dense f32 tile stacked as
     (1, 1, 1, tm, wb/l) (``path="dense"``, sum monoids only; only the
-    selection can overflow).
+    selection and the mask slice can overflow).
+
+    ``mask`` is a C-layout ``DistSparse`` over the whole product, laid out
+    like C: batch ``batch``'s piece on layer k is local columns
+    [batch·wbl, (batch+1)·wbl) of mask tile (i, j, k). The step selects that
+    slice (``mask_cap`` entries, exact from the symbolic mask counts) and
+    gathers the l layer pieces along the fiber, layer t's at D columns
+    [t·wbl, (t+1)·wbl); the local multiply then keeps C ⊙ M, or C ⊙ ¬M with
+    ``mask_complement``.
     """
+    tm_a = a.tile_shape[0]
     tn_full = b_full.tile_shape[1]
     assert tn_full % num_batches == 0, (tn_full, num_batches)
+    wb = tn_full // num_batches
     l = grid.l
-    assert (tn_full // num_batches) % l == 0
+    assert wb % l == 0
     if path == "dense":
         assert semiring.add_kind == "sum", "dense path requires a sum monoid"
 
@@ -239,16 +267,41 @@ def summa3d_fused_step(
     b_loc = _squeeze_tile(b_full, grid)
     sel, ovf_sel = b_loc.select_cols_blockcyclic(batch, num_batches, l, new_cap=sel_cap)
     ovf_sel = grid.pmax_all(ovf_sel)
+    mask_cat, ovf_mask = None, torch.zeros_like(ovf_sel)
+    if mask is not None:
+        assert mask.kind in ("A", "C"), mask.kind
+        assert mask.tile_shape == (tm_a, tn_full // l), (mask.tile_shape, (tm_a, tn_full // l))
+        wbl = mask.tile_shape[1] // num_batches
+        assert wbl * num_batches == mask.tile_shape[1], (mask.tile_shape, num_batches)
+        msel, ovf_mask = _squeeze_tile(mask, grid).select_col_block(
+            batch * wbl, wbl, new_cap=mask_cap)
+        ovf_mask = grid.pmax_all(ovf_mask)
+        mv = msel.valid_mask()
+        k_ax = grid.axis_index(LAYER_AX)
+        mrows = torch.where(mv, msel.rows, torch.full_like(msel.rows, tm_a))
+        mcols = torch.where(mv, k_ax * wbl + msel.cols, torch.full_like(msel.cols, wb))
+        g_mr = grid.all_gather(mrows, LAYER_AX).reshape(-1)
+        g_mc = grid.all_gather(mcols, LAYER_AX).reshape(-1)
+        gcap = g_mr.shape[0]
+        # every slot declared live; padding carries the (tm, wb) sentinels
+        mask_cat = SparseCOO(
+            g_mr, g_mc, torch.ones((gcap,), dtype=torch.float32, device=g_mr.device),
+            torch.tensor(gcap, dtype=torch.int32, device=g_mr.device), (tm_a, wb),
+        )
     if path == "dense":
         d_tile = spmm(_gather_A(a_loc, grid), _gather_B(sel, grid).to_dense(), semiring)
+        if mask_cat is not None:
+            d_tile = torch.where(mask_indicator(mask_cat, mask_complement), d_tile,
+                                 torch.zeros_like(d_tile))
         c_tile = grid.psum_scatter(d_tile, LAYER_AX, dim=1)  # (tm, wb/l)
-        ovf = torch.stack([ovf_sel, torch.zeros_like(ovf_sel)])
+        ovf = torch.stack([ovf_sel, ovf_mask])
         return c_tile.reshape(1, 1, 1, *c_tile.shape), ovf
     c_tile, ovf_mul = _sparse_tile_body(
         a_loc, sel, grid, caps, semiring,
         kbin=kbin, bin_of_k=bin_of_k, hashc=hashc,
+        mask=mask_cat, mask_complement=mask_complement,
     )
-    ovf = torch.stack([ovf_sel, grid.pmax_all(ovf_mul).to(torch.int32)])
+    ovf = torch.stack([ovf_sel, grid.pmax_all(ovf_mul).to(torch.int32) + ovf_mask])
     c = from_tile(c_tile, (a.shape[0], b_full.shape[1] // num_batches), grid, "C")
     return c, ovf
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,6 +48,7 @@ class SymbolicCounts:
     b_colcounts: np.ndarray  # (pr, pc, l, tn_b) B entries per local column
     a_kcounts: np.ndarray  # (pr, l, k_tot) per-k counts of gathered A
     b_kcounts: np.ndarray  # (pc, l, k_tot) per-k counts of gathered B
+    mask_colcounts: Optional[np.ndarray] = None  # (pr, pc, l, wl) mask entries per tile column
 
 
 def _host(x) -> np.ndarray:
@@ -86,11 +88,12 @@ def host_tile_counts(a, grid_shape, kind: str) -> np.ndarray:
     return np.bincount(tile_id, minlength=pr * pc * l).reshape(pr, pc, l)
 
 
-def host_symbolic_counts(a, b, grid_shape) -> SymbolicCounts:
+def host_symbolic_counts(a, b, grid_shape, mask=None) -> SymbolicCounts:
     """The symbolic pass as a host oracle: exact per-column flops / count
     vectors for ``a``·``b`` distributed on a candidate ``grid_shape``,
-    without scattering anything or touching a device. Layer grids must be
-    square (pr == pc) or single-layer (l == 1)."""
+    without scattering anything or touching a device; with ``mask`` (the
+    product's shape, laid out as C) also its per-tile column counts. Layer
+    grids must be square (pr == pc) or single-layer (l == 1)."""
     pr, pc, l = grid_shape
     assert pr == pc or l == 1, \
         f"square layer grids or l == 1 only, got {grid_shape}"
@@ -135,8 +138,16 @@ def host_symbolic_counts(a, b, grid_shape) -> SymbolicCounts:
             key, weights=acc[i, b_k, b_q], minlength=pc * l * tn_b
         )).astype(np.int64)
     percol = percol.reshape(pr, pc, l, tn_b)
+
+    mcc = None
+    if mask is not None:
+        assert mask.shape == (m_a, n_b), (mask.shape, a.shape, b.shape)
+        w_c, wl_c = n_b // pc, n_b // pc // l
+        mr, mc = _host_triplets(mask)
+        mcc = np.zeros((pr, pc, l, wl_c), np.int64)
+        np.add.at(mcc, (mr // (m_a // pr), mc // w_c, (mc % w_c) // wl_c, mc % wl_c), 1)
     return SymbolicCounts(
-        percol=percol, b_colcounts=bcc, a_kcounts=acc, b_kcounts=bkc,
+        percol=percol, b_colcounts=bcc, a_kcounts=acc, b_kcounts=bkc, mask_colcounts=mcc,
     )
 
 

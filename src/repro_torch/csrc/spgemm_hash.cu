@@ -20,6 +20,16 @@
 //     table is the only scratch, and the host issues one launch per batch
 //     instead of one per chunk plus a dozen ops to build each chunk.
 //
+// Masked multiply (paper section V-B): the reference filters every chunk's
+// keys against the mask's ascending packed keys before the insert
+// (keys_in_sorted in repro/core/local_spgemm.py::spgemm_hash), so products
+// off the mask never take a slot. Here the fused kernel does the same after
+// forming the key: a binary search of the key in the mask's keys (global
+// memory, read through L2) decides whether it is inserted -- on a hit in
+// "strict" mode, on a miss in "complement" mode. A product filtered out is
+// not a drop. The search adds log2(mask keys) dependent loads per product;
+// staging the keys in shared memory is left for a later change.
+//
 // What bounds them on this card: neither bytes nor arithmetic at the main
 // path's sizes. A batch of the n = 2^20 hash run reads A's tile, B's block
 // and cum once (a few MB) and touches one 8-byte slot per distinct key:
@@ -116,6 +126,7 @@ __global__ void hash_insert_kernel(int* table_key, float* __restrict__ table_val
 }
 
 enum MulKind : int { kTimes = 0, kMulMin = 1, kPlus = 2, kPair = 3 };
+enum MaskMode : int { kMaskNone = 0, kMaskStrict = 1, kMaskComplement = 2 };
 
 struct Expansion {
   const int* a_rows;    // A column-major sorted (CSC order)
@@ -125,9 +136,20 @@ struct Expansion {
   const int* b_cols;
   const float* b_vals;
   const int* cum;       // inclusive prefix of products per B entry
-  int cap_a, cap_b, n, mul_kind;
+  const int* mask_keys; // ascending packed mask keys, sentinel padding last
+  int cap_a, cap_b, n, mask_n, mask_mode, mul_kind;
   long long limit;      // num_chunks * chunk_cap: slots the plan enumerates
 };
+
+// Is key one of the ascending keys[0, count)? (lower bound, then compare)
+__device__ __forceinline__ bool in_sorted(const int* __restrict__ keys, int count, int key) {
+  int lo = 0, hi = count;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < key) lo = mid + 1; else hi = mid;
+  }
+  return lo < count && keys[lo] == key;
+}
 
 template <int kKind>
 __global__ void hash_expand_insert_kernel(Expansion x, int* table_key,
@@ -160,6 +182,10 @@ __global__ void hash_expand_insert_kernel(Expansion x, int* table_key,
     const int key = static_cast<int>(static_cast<unsigned>(x.a_rows[ai]) *
                                          static_cast<unsigned>(x.n + 1) +
                                      static_cast<unsigned>(x.b_rows[t]));
+    if (x.mask_mode != kMaskNone &&
+        in_sorted(x.mask_keys, x.mask_n, key) != (x.mask_mode == kMaskStrict)) {
+      continue;
+    }
     insert<kKind>(table_key, table_val, key, v, lg_table, max_probes, dropped);
   }
 }
@@ -196,17 +222,20 @@ extern "C" int hash_insert_launch(int* table_key, float* table_val, const int* k
 extern "C" int hash_expand_insert_launch(int* table_key, float* table_val, const int* a_rows,
                                          const float* a_vals, const int* colptr,
                                          const int* b_rows, const int* b_cols,
-                                         const float* b_vals, const int* cum, int cap_a,
-                                         int cap_b, int n, long long limit, int mul_kind,
-                                         int lg_table, int max_probes, int add_kind,
-                                         int* dropped, cudaStream_t stream) {
+                                         const float* b_vals, const int* cum,
+                                         const int* mask_keys, int cap_a, int cap_b, int n,
+                                         int mask_n, int mask_mode, long long limit,
+                                         int mul_kind, int lg_table, int max_probes,
+                                         int add_kind, int* dropped, cudaStream_t stream) {
   if (cap_a <= 0 || cap_b < 0 || n < 0 || limit < 0 || lg_table < 1 || lg_table > 31 ||
-      max_probes < 0 || mul_kind < kTimes || mul_kind > kPair) {
+      max_probes < 0 || mul_kind < kTimes || mul_kind > kPair || mask_mode < kMaskNone ||
+      mask_mode > kMaskComplement || mask_n < 0 ||
+      (mask_mode != kMaskNone && mask_n > 0 && mask_keys == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (cap_b == 0 || limit == 0) return static_cast<int>(cudaSuccess);
-  const Expansion x{a_rows, a_vals, colptr, b_rows, b_cols, b_vals, cum,
-                    cap_a, cap_b, n, mul_kind, limit};
+  const Expansion x{a_rows, a_vals, colptr, b_rows, b_cols, b_vals, cum, mask_keys,
+                    cap_a, cap_b, n, mask_n, mask_mode, mul_kind, limit};
   const long long want = (limit + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < kMaxBlocks ? want : kMaxBlocks);
   switch (add_kind) {

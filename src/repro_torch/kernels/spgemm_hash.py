@@ -31,6 +31,12 @@ does:
   * ``hash_expand_insert`` — the kernel for CUDA tensors, the plain version
     for CPU tensors.
 
+A masked multiply (paper §V-B) gives the ``Expansion`` the batch's
+ascending mask keys (``sortkeys.sorted_mask_keys``) and a mode: "strict"
+inserts a partial product only when its key is a mask key, "complement"
+only when it is not, as the reference filters each chunk's keys before
+its insert. Filtered products take no slot and are not dropped.
+
 All insert in place: the table (``table_key``, ``table_val``) and the
 ``dropped`` counter are updated, nothing is returned. Keys are
 ``sortkeys.pack_rowmajor`` i32 keys; ``EMPTY`` is INT32_MAX, which sorts
@@ -45,12 +51,12 @@ order when the table is nearly full).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.semiring import REDUCE_OPS, Semiring, scatter_reduce_init
-from ..core.sortkeys import INT32_MAX
+from ..core.sortkeys import INT32_MAX, keys_in_sorted
 from . import _build
 
 Tensor = torch.Tensor
@@ -66,14 +72,17 @@ _ADD_KINDS = {"sum": 0, "min": 1, "max": 2}
 #: the semiring products the fused kernel forms, by ``Semiring.mul_kind``
 MUL_KINDS = {"times": 0, "min": 1, "plus": 2, "pair": 3}
 
+#: which partial products a masked expansion inserts
+MASK_MODES = {"none": 0, "strict": 1, "complement": 2}
+
 # hash_insert_launch(table_key, table_val, keys, vals, valid, n, lg_table,
 #                    max_probes, add_kind, dropped, stream)
 _LAUNCH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
 
 # hash_expand_insert_launch(table_key, table_val, a_rows, a_vals, colptr,
-#     b_rows, b_cols, b_vals, cum, cap_a, cap_b, n, limit, mul_kind, lg_table,
-#     max_probes, add_kind, dropped, stream)
-_EXPAND_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+#     b_rows, b_cols, b_vals, cum, mask_keys, cap_a, cap_b, n, mask_n,
+#     mask_mode, limit, mul_kind, lg_table, max_probes, add_kind, dropped, stream)
+_EXPAND_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 
 
@@ -210,11 +219,14 @@ class Expansion(NamedTuple):
     b_vals: Tensor
     cum: Tensor  # int32 inclusive prefix of products per B entry
     n: int  # output columns: keys are a_row * (n + 1) + b_row
+    mask_keys: Optional[Tensor] = None  # ascending i32 mask keys, sentinel padding last
+    mask_mode: str = "none"  # a key of MASK_MODES
 
 
 def expand_slots(x: Expansion, e: Tensor, mul) -> Tuple[Tensor, Tensor, Tensor]:
     """(packed keys, values ``mul(a, b)``, valid) of expansion slots ``e``
-    (int32); slots at or past the total are invalid."""
+    (int32); slots at or past the total are invalid, and so are, under a
+    mask, the products its mode filters out (``keys_in_sorted``)."""
     cap_b = x.cum.numel()
     if cap_b == 0:
         zero = torch.zeros_like(e)
@@ -225,7 +237,11 @@ def expand_slots(x: Expansion, e: Tensor, mul) -> Tuple[Tensor, Tensor, Tensor]:
     ai = torch.clamp(x.colptr[bk] + (e - start), 0, x.a_rows.numel() - 1).long()
     vals = mul(x.a_vals[ai], x.b_vals[t])
     key = x.a_rows[ai] * (x.n + 1) + x.b_rows[t]  # sortkeys.pack_rowmajor
-    return key, vals, e < x.cum[-1]
+    valid = e < x.cum[-1]
+    if x.mask_mode != "none":
+        hit = keys_in_sorted(key, x.mask_keys)
+        valid = valid & (hit if x.mask_mode == "strict" else ~hit)
+    return key, vals, valid
 
 
 def hash_expand_insert_ref(
@@ -247,11 +263,18 @@ def hash_expand_insert_cuda(
 ) -> None:
     """One launch of the Hopper kernel over the batch's slots [0,
     min(total, num_chunks · chunk_cap)), on the current stream (in place,
-    no sync: the total is read on the device)."""
+    no sync: the total is read on the device). A masked expansion's keys
+    must be int32, contiguous and on the table's device."""
     table_cap = table_key.shape[0]
     if table_cap < 8 or table_cap & (table_cap - 1):
         raise ValueError(f"table_cap must be a power of two >= 8, got {table_cap}")
+    if x.mask_mode not in MASK_MODES:
+        raise ValueError(f"unknown mask mode {x.mask_mode!r}")
+    masked = x.mask_mode != "none"
+    if masked and (x.mask_keys is None or x.mask_keys.dim() != 1):
+        raise ValueError("a masked expansion needs a 1-D tensor of mask keys")
     ints = (table_key, x.a_rows, x.colptr, x.b_rows, x.b_cols, x.cum, dropped)
+    ints = ints + ((x.mask_keys,) if masked else ())
     floats = (table_val, x.a_vals, x.b_vals)
     if any(t.dtype != torch.int32 for t in ints) or any(t.dtype != torch.float32 for t in floats):
         raise TypeError("hash_expand_insert_cuda takes int32 indices and float32 values")
@@ -272,7 +295,9 @@ def hash_expand_insert_cuda(
         err = fn(
             table_key.data_ptr(), table_val.data_ptr(), x.a_rows.data_ptr(), x.a_vals.data_ptr(),
             x.colptr.data_ptr(), x.b_rows.data_ptr(), x.b_cols.data_ptr(), x.b_vals.data_ptr(),
-            x.cum.data_ptr(), x.a_rows.numel(), x.cum.numel(), x.n, num_chunks * chunk_cap,
+            x.cum.data_ptr(), x.mask_keys.data_ptr() if masked else None,
+            x.a_rows.numel(), x.cum.numel(), x.n, x.mask_keys.numel() if masked else 0,
+            MASK_MODES[x.mask_mode], num_chunks * chunk_cap,
             MUL_KINDS[semiring.mul_kind], table_cap.bit_length() - 1, max_probes,
             _ADD_KINDS[semiring.add_kind], dropped.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,

@@ -374,6 +374,89 @@ def test_spgemm_hash_cuda_launches_once(cuda_device):
     torch.testing.assert_close(c.vals.cpu(), want.vals, rtol=1e-5, atol=1e-6)
 
 
+def _hash_mask(kind, device, shape=(300, 260)):
+    """Sorted packed mask keys over the hash operands' output space, with
+    sentinel padding: "random" (~20 % of the space), "empty" (padding
+    only) or "every" (every coordinate)."""
+    m, n = shape
+    rng = np.random.default_rng(83)
+    keep = {"random": rng.random(shape) < 0.2, "empty": np.zeros(shape, bool),
+            "every": np.ones(shape, bool)}[kind]
+    r, c = (torch.as_tensor(x.astype(np.int32), device=device) for x in np.nonzero(keep))
+    pad = torch.full((37,), m, dtype=torch.int32, device=device)
+    rows, cols = torch.cat([r, pad]), torch.cat([c, torch.full_like(pad, n)])
+    return tsortkeys.sorted_mask_keys(rows, cols, rows < m, shape)
+
+
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "max_times"])
+@pytest.mark.parametrize("mode", ["strict", "complement"])
+@pytest.mark.parametrize("mask", ["random", "empty", "every"])
+def test_masked_hash_expand_insert_cuda_matches_plain(cuda_device, semiring, mode,
+                                                      mask):
+    """The masked fused kernel (one launch) against its plain version (the
+    chunk loop filtering each chunk by ``keys_in_sorted``): the same key set,
+    sums within rtol 1e-5, min/max exact, no drops. A mask of every key
+    keeps the unmasked table under "strict" and nothing under "complement";
+    an empty mask the other way round."""
+    semi = tsr.get(semiring)
+    a, b = _hash_operands(cuda_device)
+    x, total = tlocal.hash_expansion(a, b)
+    xm = x._replace(mask_keys=_hash_mask(mask, cuda_device), mask_mode=mode)
+    num_chunks = -(-int(total) // 4096)
+    before = thash.hash_expand_insert_cuda.launches
+    kt = _expand_insert(thash.hash_expand_insert_cuda, xm, 1 << 16, 4096, num_chunks, semi,
+                        cuda_device)
+    assert thash.hash_expand_insert_cuda.launches == before + 1
+    pt = _expand_insert(thash.hash_expand_insert_ref, xm, 1 << 16, 4096, num_chunks, semi,
+                        cuda_device)
+    assert kt[2] == pt[2] == 0
+    np.testing.assert_array_equal(kt[0], pt[0])
+    live = kt[0] != thash.EMPTY
+    assert_vals(semi.add_kind, kt[1][live], pt[1][live])
+    keeps_all = (mask == "every") == (mode == "strict")
+    if mask != "random":
+        full = _expand_insert(thash.hash_expand_insert_cuda, x, 1 << 16, 4096, num_chunks, semi,
+                              cuda_device)
+        np.testing.assert_array_equal(kt[0], full[0] if keeps_all else
+                                      np.full_like(kt[0], thash.EMPTY))
+
+
+def test_masked_hash_wrapper_refuses_bad_mask_keys(cuda_device):
+    """No fallback: mask keys that are not int32, not contiguous or not on
+    the table's device raise before any launch."""
+    a, b = _hash_operands(cuda_device)
+    keys = _hash_mask("random", cuda_device)
+    x, _ = tlocal.hash_expansion(a, b, keys)
+    tk = torch.full((1 << 16,), thash.EMPTY, dtype=torch.int32, device=cuda_device)
+    tv = torch.zeros(1 << 16, device=cuda_device)
+    dropped = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    before = thash.hash_expand_insert_cuda.launches
+    for bad, err in ((keys.long(), TypeError), (keys[::2], ValueError), (keys.cpu(), ValueError)):
+        with pytest.raises(err):
+            thash.hash_expand_insert_cuda(tk, tv, dropped, x._replace(mask_keys=bad), 4096, 8,
+                                          semiring=tsr.PLUS_TIMES, max_probes=32)
+    assert thash.hash_expand_insert_cuda.launches == before
+
+
+@pytest.mark.parametrize("complement", [False, True], ids=["strict", "complement"])
+def test_masked_spgemm_hash_cuda_launches_once(cuda_device, complement):
+    """The masked hash multiply on the card: one fused launch, the CPU
+    path's structure, values within rtol 1e-5, no overflow."""
+    a, b = _hash_operands(cuda_device)
+    keys = _hash_mask("random", cuda_device)
+    kw = dict(out_cap=60000, table_cap=1 << 16, chunk_cap=1024, num_chunks=64)
+    before = thash.hash_expand_insert_cuda.launches
+    c, ovf = tlocal.spgemm_hash(a, b, mask_keys=keys, mask_complement=complement, **kw)
+    assert thash.hash_expand_insert_cuda.launches == before + 1
+    cpu = [tsparse.SparseCOO(*(getattr(t, f).cpu() for f in ("rows", "cols", "vals", "nnz")),
+                             t.shape) for t in (a, b)]
+    want, ovf_w = tlocal.spgemm_hash(*cpu, mask_keys=keys.cpu(), mask_complement=complement,
+                                     **kw)
+    assert int(ovf) == int(ovf_w) == 0
+    assert torch.equal(c.rows.cpu(), want.rows) and torch.equal(c.cols.cpu(), want.cols)
+    torch.testing.assert_close(c.vals.cpu(), want.vals, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("engine", ["bucket", "packed", "lexsort"])
 def test_esc_sums_repeat_bits(cuda_device, engine):
     """The ESC multiply, and each engine's sum, give the same bits on every

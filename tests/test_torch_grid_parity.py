@@ -8,9 +8,14 @@ the ESC product. Cases: ``scatter_to_grid`` tiles and the
 (sum and max); ``batched_summa3d`` on the ESC, hash and k-binned local
 multiplies, on a starved ESC plan that takes the retry ladder, on the dense
 path and on the max_times semiring, and under a budget that blocks the
-ladder, so batches are replanned finer and merged back; and on 2×2×1 the
-sparse and dense MCL device loops. Each rank's tile is held against the
-reference's tile at the rank's grid point.
+ladder, so batches are replanned finer and merged back; on 2×2×1 the
+sparse and dense MCL device loops; the masked multiply (paper §V-B) at b ∈
+{2, 4} × strict/complement × ESC/hash/k-binned on 2×2×1 and 1×1×4, where the
+batch's mask slice is gathered along the fiber with per-layer column
+offsets; and the masked triangle count (its plan and its count) and the
+overlap pairs, without and with a candidate mask, on every shape, 2×2×2
+included. Each rank's tile is held against the reference's
+tile at the rank's grid point.
 
 Tolerances (the port's parity rules): structure, padding and min/max values
 exact; plus_times values within rtol 1e-5 / atol 1e-6 (sums in another
@@ -57,6 +62,9 @@ PRODUCTS = {
 # MCL loops on 2x2x1: name -> (path, forced batches, top-k)
 MCL_LOOPS = {"sparse_b4_k64": ("sparse", 4, 64), "sparse_b4_k4": ("sparse", 4, 4),
              "dense_b4_k64": ("dense", 4, 64)}
+# the masked sweep: (complement, forced batches, local path)
+MASKED = tuple((comp, nb, lp) for comp in (False, True) for nb in (2, 4)
+               for lp in ("esc", "hash", "binned"))
 SPAWN_TIMEOUT_S = 240  # a bound for a hung rank, not a run time (~20 s a shape alone)
 REFERENCE_TIMEOUT_S = 300  # likewise (~60 s alone)
 
@@ -69,6 +77,10 @@ def _tag(shape):
 
 def _cases(shape):
     return ("esc",) if shape == ESC_SHAPE else tuple(PRODUCTS)
+
+
+def _masked_case(comp, nb, lp):
+    return f"masked_{'complement' if comp else 'strict'}_b{nb}_{lp}"
 
 
 # ---------------------------------------------------------------------------
@@ -97,6 +109,19 @@ def _inputs():
     sums = np.zeros(N_MCL)
     np.add.at(sums, c, v.astype(np.float64))  # column-stochastic, as the MCL cases
     inp.update(mcl_r=r, mcl_c=c, mcl_v=(v / sums[c]).astype(np.float32))
+    mask = np.random.default_rng(41).random((N, N)) < 0.15
+    inp["mask_r"], inp["mask_c"] = (x.astype(np.int32) for x in np.nonzero(mask))
+    g = gen.symmetrized(gen.rmat(7, edge_factor=8, seed=5, device="cpu"))
+    nnz = int(g.nnz)
+    inp.update(tri_r=g.rows[:nnz].numpy(), tri_c=g.cols[:nnz].numpy())
+    k = gen.kmer_like(32, 64, 5, seed=17, device="cpu")
+    nnz = int(k.nnz)
+    inp.update(kmer_r=k.rows[:nnz].numpy(), kmer_c=k.cols[:nnz].numpy())
+    d = np.zeros((32, 64))
+    d[inp["kmer_r"], inp["kmer_c"]] = 1
+    i, j = np.nonzero(np.triu(d @ d.T >= 2, k=1))
+    extra = np.random.default_rng(3).integers(0, 32, (2, 40))
+    inp["cand_r"], inp["cand_c"] = np.concatenate([i, extra[0]]), np.concatenate([j, extra[1]])
     return inp
 
 
@@ -105,7 +130,8 @@ def _plan_record(p):
     kb = p.kbin
     return {
         "ints": np.array([p.num_batches, p.lower_bound, p.total_flops, p.max_unmerged_nnz,
-                          p.sel_cap, *dataclasses.astuple(p.caps), kb.num_bins, kb.bin_cap_a,
+                          p.sel_cap, p.mask_sel_cap, *dataclasses.astuple(p.caps),
+                          kb.num_bins, kb.bin_cap_a,
                           kb.bin_cap_b, kb.pairings, kb.pairings_unbinned], np.int64),
         "hash": np.array(dataclasses.astuple(p.hash_caps) if p.hash_caps else [], np.int64),
         "per_batch_flops": np.asarray(p.per_batch_flops),
@@ -152,6 +178,36 @@ def _run(pkg, grid, shape, inp):
                                           *np.ravel(rep.degraded_batches)])
         out[f"{case}/local_path"] = np.array(res.local_path)
         plans[case] = res.plan
+    if shape != ESC_SHAPE:
+        ones = np.ones(len(inp["mask_r"]), np.float32)
+        mask = pkg.scatter(pkg.coo(inp["mask_r"], inp["mask_c"], ones, (N, N)), grid, "C")
+        for comp, nb, lp in MASKED:
+            case, batches = _masked_case(comp, nb, lp), []
+            res = pkg.batched(
+                ops["A"], ops["B"], grid, 1 << 26,
+                spec=pkg.PlanSpec(mask=mask, mask_complement=comp, local_path=lp,
+                                  force_num_batches=nb),
+                consumer=lambda bi, cb, cm: batches.append(_tiles(cb)),
+            )
+            for f in batches[0]:
+                out[f"{case}/{f}"] = np.stack([b[f] for b in batches])
+            out[f"{case}/retries"] = np.array(res.num_retries)
+            out[f"{case}/local_path"] = np.array(res.local_path)
+            plans[case] = res.plan
+    ones = np.ones(len(inp["tri_r"]), np.float32)
+    tri = pkg.coo(inp["tri_r"], inp["tri_c"], ones, (N, N))
+    L, U = pkg.ga._strict_parts(tri)
+    A, B, M = (pkg.scatter(x, grid, kind) for x, kind in ((L, "A"), (U, "B"), (L, "C")))
+    budget = pkg.probe(A, B, grid)
+    plans["triangles"] = pkg.plan(A, B, grid, budget, spec=pkg.PlanSpec(mask=M))
+    out["triangles"] = np.array(pkg.ga.triangle_count(tri, grid, per_process_memory=budget))
+    kmer = pkg.coo(inp["kmer_r"], inp["kmer_c"], np.ones(len(inp["kmer_r"]), np.float32),
+                   (32, 64))
+    cands = pkg.coo(inp["cand_r"], inp["cand_c"], np.ones(len(inp["cand_r"]), np.float32),
+                    (32, 32))
+    for label, cand in (("overlap", None), ("overlap_candidates", cands)):
+        out[label] = np.array(pkg.ga.overlap_pairs(kmer, grid, min_shared=2, candidates=cand),
+                              np.int64).reshape(-1, 3)
     if shape == (2, 2, 1):
         m = pkg.coo(inp["mcl_r"], inp["mcl_c"], inp["mcl_v"], (N_MCL, N_MCL))
         for name, (path, nb, k) in MCL_LOOPS.items():
@@ -170,8 +226,8 @@ def _run(pkg, grid, shape, inp):
 # ---------------------------------------------------------------------------
 def _port_rank(grid, inp):
     from repro_torch.core import distsparse, semiring, sparse, specs
-    from repro_torch.core.batched import batched_summa3d
-    from repro_torch.sparse_apps import mcl
+    from repro_torch.core.batched import batched_summa3d, plan_batches, probe_memory_budget
+    from repro_torch.sparse_apps import graph_algorithms, mcl
 
     pkg = SimpleNamespace(
         coo=lambda r, c, v, shape: sparse.from_numpy_coo(r, c, v, shape, cap=len(r),
@@ -185,6 +241,9 @@ def _port_rank(grid, inp):
         PlanSpec=specs.PlanSpec,
         ExecSpec=specs.ExecSpec,
         mcl=mcl,
+        ga=graph_algorithms,
+        plan=plan_batches,
+        probe=probe_memory_budget,
     )
     out, plans = _run(pkg, grid, (grid.pr, grid.pc, grid.l), inp)
     loaded = sorted(m for m in ("jax", "jaxlib", "repro") if m in sys.modules)
@@ -196,10 +255,10 @@ def _port_rank(grid, inp):
 # ---------------------------------------------------------------------------
 def _reference(inputs_path, out_path):
     from repro.core import distsparse, semiring, sparse
-    from repro.core.batched import batched_summa3d
+    from repro.core.batched import batched_summa3d, plan_batches, probe_memory_budget
     from repro.core.grid import make_grid
     from repro.core.specs import ExecSpec, PlanSpec
-    from repro.sparse_apps import mcl
+    from repro.sparse_apps import graph_algorithms, mcl
 
     pkg = SimpleNamespace(
         coo=lambda r, c, v, shape: sparse.from_numpy_coo(r, c, v, shape, cap=len(r)),
@@ -212,6 +271,9 @@ def _reference(inputs_path, out_path):
         PlanSpec=PlanSpec,
         ExecSpec=ExecSpec,
         mcl=mcl,
+        ga=graph_algorithms,
+        plan=plan_batches,
+        probe=probe_memory_budget,
     )
     inp = dict(np.load(inputs_path))
     res = {}
@@ -336,6 +398,65 @@ def test_batched_summa3d_matches_jax(runs, shape, case):
         assert ref[f"{tag}/report"][0] > 0, "the starved plan must take the retry ladder"
     if case == "blocked":
         assert ref[f"{tag}/report"][3] > 0, "the blocked ladder must replan batches"
+
+
+def _masked_ids():
+    return [(s, c) for s in SHAPES for c in MASKED]
+
+
+@pytest.mark.parametrize("shape,masked", _masked_ids(),
+                         ids=[f"{_tag(s)}-{_masked_case(*c)}" for s, c in _masked_ids()])
+def test_masked_multiply_matches_jax(runs, shape, masked):
+    """The masked product at b > 1 on a grid: the mask slice of each batch
+    reaches every layer at its columns, so every rank's tiles and plan are
+    the reference's and no batch retries (the mask-slice capacity is exact)."""
+    _, ref, port = runs
+    case = _masked_case(*masked)
+    tag = f"{_tag(shape)}/{case}"
+    plans = [p[case] for _, _, p, _ in port[shape]]
+    assert all(p == plans[0] for p in plans), "ranks planned different batches"
+    for key, x in _plan_record(pickle.loads(plans[0])).items():
+        np.testing.assert_array_equal(x, ref[f"{tag}/plan/{key}"], err_msg=key)
+    for coords, out, *_ in port[shape]:
+        assert int(out[f"{case}/retries"]) == int(ref[f"{tag}/retries"]) == 0
+        assert out[f"{case}/local_path"] == ref[f"{tag}/local_path"] == masked[2]
+        got = {f: out[f"{case}/{f}"][:, 0, 0, 0] for f in ("rows", "cols", "vals", "nnz")}
+        _assert_tiles(got, {f: _ref_tile(ref[f"{tag}/{f}"], coords, 1) for f in got},
+                      exact_vals=False)
+
+
+@pytest.mark.parametrize("shape", SHAPES + (ESC_SHAPE,), ids=_tag)
+def test_triangle_count_matches_jax(runs, shape):
+    """Every rank counts the reference's triangles and plans the
+    reference's masked plan; the count is the dense reference's."""
+    inp, ref, port = runs
+    d = np.zeros((N, N), np.int64)
+    d[inp["tri_r"], inp["tri_c"]] = 1
+    want = int(np.trace(d @ d @ d)) // 6
+    assert int(ref[f"{_tag(shape)}/triangles"]) == want
+    plans = [p["triangles"] for _, _, p, _ in port[shape]]
+    assert all(p == plans[0] for p in plans), "ranks planned different batches"
+    for key, x in _plan_record(pickle.loads(plans[0])).items():
+        np.testing.assert_array_equal(x, ref[f"{_tag(shape)}/triangles/plan/{key}"], err_msg=key)
+    assert [int(out["triangles"]) for _, out, *_ in port[shape]] == [want] * len(port[shape])
+
+
+@pytest.mark.parametrize("shape", SHAPES + (ESC_SHAPE,), ids=_tag)
+@pytest.mark.parametrize("case", ["overlap", "overlap_candidates"])
+def test_overlap_pairs_match_jax(runs, shape, case):
+    """Every rank returns the reference's overlap pairs, which are the
+    dense A·Aᵀ's with i < j and shared ≥ 2; the candidate mask (the true
+    pairs and 40 random ones) keeps them all."""
+    inp, ref, port = runs
+    d = np.zeros((32, 64))
+    d[inp["kmer_r"], inp["kmer_c"]] = 1
+    c = d @ d.T
+    i, j = np.nonzero(np.triu(c >= 2, k=1))
+    want = np.stack([i, j, np.rint(c[i, j])], axis=1).astype(np.int64)
+    assert len(want) > 0
+    np.testing.assert_array_equal(ref[f"{_tag(shape)}/{case}"], want)
+    for _, out, *_ in port[shape]:
+        np.testing.assert_array_equal(out[case], want)
 
 
 @pytest.mark.parametrize("loop", list(MCL_LOOPS))
