@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-10, one card (10 runs before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2 and 9 at full size, four cards
+    python3 chip_smoke.py            # phases 1-11, one card (10 and 11 run before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9 and 11's grid parts, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -69,7 +69,12 @@ Phases (any failed check raises, so the script exits non-zero):
      B (both sum in f32), bit-identical between calls, densify within rtol
      1e-6 (atomic sums of duplicates), each timed as in 4, beside one
      PyTorch call that computes the same function (torch.topk,
-     torch.sparse.mm, index_put_), timed only as a yardstick.
+     torch.sparse.mm, index_put_), timed only as a yardstick. Then SpMM's
+     accumulate mode (the Cannon ring's stages, phase 11a) against its
+     plain version at the 2x2x1 ring's second stage on the n = 2^15 input
+     (rtol 1e-5, bit-identical between calls), timed as in 4 beside
+     addmm_ with A in CSR; timed here, as the other kernels are, because
+     the profiler has recorded no device event at all late in the run.
   7. Markov clustering (sparse_apps.mcl.mcl_iterate), sparse path, n = 2^18:
      a column-stochastic protein-similarity-like input (64-node clusters),
      inflation 2, threshold 1e-4, top-64 per column, 4 iterations under a
@@ -148,11 +153,50 @@ Phases (any failed check raises, so the script exits non-zero):
           least 64 batches: i32 mask keys), both equal to scipy's A·Aᵀ
           filtered to i < j and shared >= 2.
 
+ 11. The SUMMA3D steps outside the fused step, placement and the tuner;
+     runs after 10, its grid parts inside 9's ranks. Every run with the
+     launch counts of the kernels it reaches set to 0 just before and read
+     just after.
+       a. summa3d_dense_step at n = 2^15, "allgather" and "ring" (Cannon:
+          skew, then per stage SpMM into one D tile, SpMM's accumulate
+          mode after the first stage, and a unit Grid.ppermute of each
+          operand), on this card (b = 1) and on 9's four gloo ranks
+          (2x2x1 b = 1, 1x1x4 b = 4); with --chips 4 on 2x2x1 at n = 2^16
+          over NCCL. Each tile against scipy's A @ A (same nonzeros, rtol
+          1e-4) and the ring's against allgather's (rtol 1e-5: the
+          stages add in another order); densify and SpMM launch once a
+          stage (pc times on the ring). Logs each schedule's wall and the
+          step's peak memory above what was allocated before it, per rank.
+          summa3d_sparse_step on the n = 2^18 MCL input with the caps of
+          each path's b = 1 plan: ESC on the whole of B, hash on batch 0
+          of 64 (its packed keys must fit in i32), against scipy.
+       b. placement.multiply_placed of the masked L·U of the R-MAT graph
+          of scale 16 with "identity", "degree" and "rcm" on the hash
+          path, all at one budget: the largest of the strategies' own
+          budgets for b >= 16 (a strategy whose inputs exceed the identity
+          plan's b >= 16 budget is logged as refused there), on this card
+          and on 9's 2x2x1 ranks: every strategy's triplets
+          equal the identity run's exactly and sum to 10b's scipy count;
+          logs b, sel_cap, piece_cap, d_cap, padded_comm_volume and wall.
+       c. autotune for 1 device on 3c's n = 2^14 input and budget; the
+          tuned configuration run on the card against scipy, its predicted
+          ms beside the measured; fit_overhead over the raw predicted and
+          measured ms of 3's three runs and this one, beside the card's
+          name. The n = 2^20 tunes (1 and 4 devices, 3's budget) run in a
+          worker process from the end of phase 3 on and are logged with
+          their host time; one that picks binned is not run (ROADMAP §3.1). With
+          --chips 4 the 4-device pick runs on its own grid, one rank per
+          card over NCCL, when its path is ESC or hash (hash: at least the
+          i32 key floor of batches), against scipy.
+
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
 phase 7's profiled batch; those two rows also hold each rank's launches in
-phase 9, and the hash row the masked kernel's numbers from 10) and the JSON result line; with --chips 4 only the result line.
+phase 9, and the hash row the masked kernel's numbers from 10; densify,
+SpMM, hash and segment rows also hold their launches in 11, and the SpMM row
+its accumulate mode's check) and the JSON result line; with --chips 4 only
+the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
 result.
@@ -204,10 +248,27 @@ PINNED_LEAST_B = 16  # 10b plans at least this many batches
 GRID_TRI_LEAST_B = 4  # phase 9's triangle count plans at least this many batches
 KMER = (1 << 18, 1 << 23, 64)  # 10c: sequences, k-mers, k-mers per sequence (~2 a column)
 KMER_LEAST_B = 128  # 10c without candidates: a budget of at least this many batches
+N_DENSE = 1 << 15  # 11a: the dense step on one card and on the four gloo ranks
+N_DENSE_NCCL = 1 << 16  # 11a: the dense step on four cards, 2x2x1
+DENSE_RTOL = 1e-5  # 11a: ring vs allgather, the stages add in another order
+# 11a on the four gloo ranks: (shape, b) of the dense step's B block; b = 4 on
+# 1x1x4 keeps its reduce-scatter of D over gloo at 1 GiB a rank
+DENSE_GLOO = (((2, 2, 1), 1), ((1, 1, 4), 4))
+PLACE_STRATEGIES = ("identity", "degree", "rcm")
+PLACE_LEAST_B = 16  # 11b: the budget at which the identity plan has at least this b
+TUNE_WAIT_S = 900  # 11c: how long the n = 2^20 tunes may take in their worker
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card_lines(chips):
+    """The first ``chips`` cards' name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[:chips]
 
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
@@ -1802,7 +1863,7 @@ def _masked_triangles(grid, graphs, ref):
     t0 = time.perf_counter()
     g = graphs.pop(TRI_PINNED_SCALE)
     n = g.shape[0]
-    want = ref.count(TRI_PINNED_SCALE)
+    want = out["tri16"] = ref.count(TRI_PINNED_SCALE)
     nnz_l, wedges, _ = ref.stats[TRI_PINNED_SCALE]
     A, B, M = triangle_operands(g, grid)
     floor = max(hash_batch_floor(n, (1, 1, 1)), PINNED_LEAST_B)
@@ -1970,7 +2031,7 @@ def run_grid_multiply(A, B, grid, budget, local_path, profile):
     return res, wall, np.diff([t0] + stamps), parts, nccl_share(prof) if profile else None
 
 
-def grid_rank(grid, n, budget, with_mcl, tri_scale):
+def grid_rank(grid, n, budget, with_mcl, tri_scale, p11):
     """One rank of the distributed phase (spawned, one process per grid
     point). On each of GRID_SHAPES (the launcher's grid, then the others
     built in the same process group): this rank's tile of C = A·A on the
@@ -1983,8 +2044,9 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale):
     1x1x1 grid of its own card. Rank 0 profiles the second ESC
     run. With ``with_mcl``, then the sparse n = 2^18 MCL device loop on
     the launcher's grid, which rank 0 first runs on a 1x1x1 grid of its
-    own card and holds the grid's loop against. Returns per shape and run
-    the pickled plan, b, wall, per-batch walls, launches and checks."""
+    own card and holds the grid's loop against. Then phase 11's parts on
+    the grid (``phase11_rank``). Returns per shape and run the pickled
+    plan, b, wall, per-batch walls, launches and checks."""
     import pickle
 
     import torch
@@ -2066,10 +2128,11 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale):
             check_mcl_matrix(fin, cfg.max_per_col)
             out["mcl"].update(one_card_wall=one[2], one_card_batches=[
                 h["batches"] for h in one[1]])
+    out["p11"] = phase11_rank(grid, p11, tri)
     return out
 
 
-def grid_phase(n, backend, with_mcl, tri_scale):
+def grid_phase(n, backend, with_mcl, tri_scale, p11):
     """Phase 9: ``grid_rank`` on four ranks, one per grid point, over
     ``backend`` (gloo: all four on this card; nccl: one per card). Checks
     that every rank planned the same batches, that the second ESC run of
@@ -2077,8 +2140,9 @@ def grid_phase(n, backend, with_mcl, tri_scale):
     launched once a batch and the segment reduction at least once a batch
     on every rank, and that every rank counted the one-card triangle count
     under the same masked plan; logs per rank and shape the wall, the batch
-    walls and b. Returns the per-rank launches of the two kernels, by shape
-    and run."""
+    walls and b; then phase 11's records (``log_phase11_ranks``). Returns
+    the per-rank launches of the two kernels, by shape and run, and the
+    dense step's densify/SpMM launches per rank."""
     from repro_torch.launch import spawn
 
     t0 = time.perf_counter()
@@ -2086,7 +2150,7 @@ def grid_phase(n, backend, with_mcl, tri_scale):
     workdir.mkdir(exist_ok=True)
     budget = GRID_BUDGET * n // N_GRID
     ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
-                      args=(n, budget, with_mcl, tri_scale), timeout_s=GRID_TIMEOUT_S,
+                      args=(n, budget, with_mcl, tri_scale, p11), timeout_s=GRID_TIMEOUT_S,
                       workdir=workdir)
     launches = {}
     want = ranks[0]["tri_one_card"]
@@ -2142,7 +2206,581 @@ def grid_phase(n, backend, with_mcl, tri_scale):
                 f"nnz {m['nnz']}, b {m['batches']}, launches {m['launches']}"
                 + (f"; one card: wall {m['one_card_wall']:.2f} s, b {m['one_card_batches']}"
                    if "one_card_wall" in m else ""))
+    dense_launches = log_phase11_ranks(ranks, backend)
     log(f"phase 9 ({backend}, n={n}): {time.perf_counter() - t0:.1f} s")
+    return launches, dense_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the SUMMA3D steps outside the fused step, placement, the tuner
+# ---------------------------------------------------------------------------
+def dense_counters():
+    """Launch counters of the dense step's two kernels."""
+    from repro_torch.kernels import densify_kernel as D, spmm_kernel as S
+
+    return {"densify": D.densify_cuda, "spmm": S.spmm_cuda}
+
+
+def batch_block(B, grid, nb, bi):
+    """Batch ``bi`` of ``nb`` of B on this rank: the block-cyclic column
+    block the driver's selection makes (kind "B", global (k, n/nb))."""
+    from repro_torch.core.distsparse import from_tile
+
+    sel, ovf = B.local(*grid.coords).select_cols_blockcyclic(bi, nb, grid.l, new_cap=B.cap)
+    if int(ovf):
+        raise AssertionError(f"batch {bi} of {nb}: the selection overflowed by {int(ovf)}")
+    return from_tile(sel, (B.shape[0], B.shape[1] // nb), grid, "B")
+
+
+def tile_reference(ref, n, grid, nb, bi):
+    """scipy's entries of A @ A in this rank's C tile of batch ``bi`` of
+    ``nb``: (local rows, local columns, values), row-major."""
+    from repro_torch.core.batched import batch_column_map
+
+    key, val = ref
+    _, j, k = grid.coords
+    cmap = batch_column_map(n, grid, nb, bi)[j, k]
+    local = np.full(n, -1, np.int64)
+    local[cmap] = np.arange(len(cmap))
+    tm = n // grid.pr
+    r, c = key // n, key % n
+    keep = (r // tm == grid.coords[0]) & (local[c] >= 0)
+    return r[keep] - grid.coords[0] * tm, local[c[keep]], val[keep]
+
+
+def batch_reference(ref, n, grid, nb, bi):
+    """scipy's (keys, values) of A @ A in the columns of batch ``bi`` of
+    ``nb`` (on a single-row grid, which holds whole columns)."""
+    from repro_torch.core.batched import batch_column_map
+
+    cols = np.zeros(n, bool)
+    cols[batch_column_map(n, grid, nb, bi).ravel()] = True
+    keep = cols[ref[0] % n]
+    return ref[0][keep], ref[1][keep]
+
+
+def check_dense_tile(tile, entries) -> float:
+    """A dense C tile against scipy's entries in it (``tile_reference``):
+    the same nonzeros, values within VALUE_RTOL. Returns the max relative
+    error."""
+    import torch
+
+    lr, lc, v = entries
+    t = tile.reshape(tile.shape[-2], tile.shape[-1])
+    nz = int(torch.count_nonzero(t))
+    if nz != len(v):
+        raise AssertionError(f"dense tile: {nz} nonzeros, scipy {len(v)}")
+    if not len(v):
+        return 0.0
+    dev = t.device
+    got = t[torch.as_tensor(lr, device=dev), torch.as_tensor(lc, device=dev)]
+    want = torch.as_tensor(v, device=dev)
+    err = float(((got - want).abs() / want.abs()).max())
+    if not err <= VALUE_RTOL:
+        raise AssertionError(f"dense tile: max rel err {err} against scipy")
+    return err
+
+
+def dense_step_run(A, Bb, grid, schedule):
+    """One ``summa3d_dense_step`` with the densify and SpMM launch counts
+    set to 0 just before and read just after. Returns (tile, wall s, the
+    step's peak bytes above what was allocated before it, launches)."""
+    import torch
+
+    from repro_torch.core.summa3d import summa3d_dense_step
+
+    counters = dense_counters()
+    dev = grid.device
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    for w in counters.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    c = summa3d_dense_step(A, Bb, grid, schedule=schedule)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    return c, wall, peak, {name: w.launches for name, w in counters.items()}
+
+
+def dense_steps(a, grid, nb, ref):
+    """11a's dense step on ``grid``: batch 0 of ``nb`` under "allgather"
+    and "ring", each run twice (the first also pays for setting up its
+    collectives: the ring's first shifts are the first point-to-point
+    traffic of their subgroups), each tile held against scipy's, the
+    ring's against allgather's (rtol DENSE_RTOL: the stages add in another
+    order). Each launches densify and SpMM once per stage: once
+    (allgather) or pc times (ring). Returns {schedule: record, the second
+    run's wall and peak} and the ring's relative distance."""
+    import torch
+
+    from repro_torch.core.distsparse import scatter_to_grid
+
+    n = a.shape[0]
+    A, B = scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B")
+    Bb = batch_block(B, grid, nb, 0)
+    del B
+    entries = tile_reference(ref, n, grid, nb, 0)
+    out, tiles = {}, {}
+    for schedule in ("allgather", "ring"):
+        first = dense_step_run(A, Bb, grid, schedule)[1]
+        c, wall, peak, launches = dense_step_run(A, Bb, grid, schedule)
+        stages = grid.pc if schedule == "ring" else 1
+        if launches != {"densify": stages, "spmm": stages}:
+            raise AssertionError(f"dense step {schedule}: launches {launches}, want {stages} each")
+        out[schedule] = {"first_wall": first, "wall": wall, "peak": peak, "launches": launches,
+                         "max_rel_err": check_dense_tile(c, entries)}
+        tiles[schedule] = c
+    g, r = tiles["allgather"], tiles["ring"]
+    dist = float(((r - g).abs() / g.abs().clamp_min(torch.finfo(torch.float32).tiny)).max())
+    if not dist <= DENSE_RTOL:
+        raise AssertionError(f"dense step: ring vs allgather max rel {dist}")
+    return out, dist
+
+
+def log_dense(label, rec, dist):
+    log(f"{label}: ring vs allgather max rel {dist:.3g}; " + "; ".join(
+        f"{s} wall {x['wall']:.3f} s (first run {x['first_wall']:.3f} s), step peak "
+        f"{x['peak'] / 2**30:.3f} GiB, launches "
+        f"{x['launches']}, max rel err vs scipy {x['max_rel_err']:.3g}" for s, x in rec.items()))
+
+
+def check_spmm_accumulate(a, n):
+    """SpMM's accumulate mode against its plain version at the shape of the
+    2x2x1 ring's second stage on grid point (0, 0): C (its first stage,
+    A(0,0)·B(0,0)) += A(0,1)·B(1,0), each an (n/2 x n/2) block of ``a``;
+    and ``addmm_`` with A(0,1) in CSR (cuSPARSE, C += A·B) as the library
+    call. The bound counts this stage's own data: A's entries once, the
+    rows of B that A's columns name once, and the rows of C that A's rows
+    name read and written once. Returns (max rel err, ms, plain ms,
+    library ms, bytes, flops)."""
+    import torch
+
+    from repro_torch.core import convert
+    from repro_torch.kernels import densify_kernel as D, spmm_kernel as S
+
+    h = n // 2
+    r, c, v = (torch.as_tensor(x, device=a.device) for x in convert.triplets(a))
+
+    def block(i, j):
+        keep = (r // h == i) & (c // h == j)
+        return (r[keep] - i * h).int(), (c[keep] - j * h).int(), v[keep].contiguous()
+
+    a00, a01 = block(0, 0), block(0, 1)
+    b00, b10 = (D.densify_ref(*block(i, 0), h, h) for i in (0, 1))
+    acc = S.spmm_cuda(*a00, b00, h)
+    got = S.spmm_cuda(*a01, b10, h, out=acc.clone())
+    want = S.spmm_ref(*a01, b10, h, chunk=4096, out=acc.clone())
+    err = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not err <= KERNEL_RTOL:
+        raise AssertionError(f"spmm accumulate: max rel err {err} against the plain version")
+    if not torch.equal(S.spmm_cuda(*a01, b10, h, out=acc.clone()), got):
+        raise AssertionError("spmm accumulate: a second call gave other bits")
+    out = acc.clone()
+    ms = device_ms(lambda: S.spmm_cuda(*a01, b10, h, out=out), 1, "spmm_tile_kernel", 5)
+    events = cuda_ms(lambda: S.spmm_cuda(*a01, b10, h, out=out), reps=5)
+    plain = cuda_ms(lambda: S.spmm_ref(*a01, b10, h, chunk=4096, out=out), reps=1)
+    a_csr = torch.sparse_coo_tensor(torch.stack([a01[0].long(), a01[1].long()]), a01[2],
+                                    (h, h), check_invariants=False).coalesce().to_sparse_csr()
+    lib_c = acc.clone().addmm_(a_csr, b10)
+    lib = library_device_ms("addmm_ (CSR)", lambda: out.addmm_(a_csr, b10))
+    nnz = a01[0].numel()
+    rows_a, cols_a = int(a01[0].unique().numel()), int(a01[1].unique().numel())
+    nbytes = 12 * nnz + 4 * h * cols_a + 8 * h * rows_a
+    log(f"spmm accumulate (C += A·B, {nnz} entries in {rows_a} rows and {cols_a} columns "
+        f"x {h}x{h}): max rel err {err:.3g}, {ms:.6f} ms device time ({events:.4f} ms with "
+        f"CUDA events; plain {plain:.3f} ms, addmm_ {lib:.6f} ms, max abs diff from the "
+        f"kernel {float((lib_c - got).abs().max()):.3g}), {nbytes} bytes")
+    return err, ms, plain, lib, nbytes, 2.0 * nnz * h
+
+
+def sparse_steps(grid):
+    """11a's sparse step on one card on the n = 2^18 MCL input, with the
+    caps of each path's b = 1 plan: ESC on the whole of B (against scipy's
+    A @ A), hash on batch 0 of the least b whose packed keys fit in i32
+    (against scipy's columns of that batch). Returns launches by path."""
+    import torch
+
+    from repro_torch.core import convert
+    from repro_torch.core.batched import batch_column_map, plan_batches
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.specs import PlanSpec
+    from repro_torch.core.summa3d import summa3d_sparse_step
+
+    a, _ = mcl_sparse_input()
+    n = a.shape[0]
+    A, B = scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B")
+    ref = scipy_square(a)
+    counters = counted_kernels()
+    out = {}
+    for lp in ("esc", "hash"):
+        plan = plan_batches(A, B, grid, 1 << 62, spec=PlanSpec(local_path=lp))
+        nb = 1 if lp == "esc" else hash_batch_floor(n, (1, 1, 1))
+        Bb = B if nb == 1 else batch_block(B, grid, nb, 0)
+        for w in counters.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        c, ovf = summa3d_sparse_step(A, Bb, grid, plan.caps, hashc=plan.hash_caps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in counters.items()}
+        if int(ovf):
+            raise AssertionError(f"11a sparse step {lp}: overflow {int(ovf)} at the b = 1 caps")
+        want = ref if nb == 1 else batch_reference(ref, n, grid, nb, 0)
+        err = check_product([convert.batch_to_global(c, batch_column_map(n, grid, nb, 0))],
+                            want, n)
+        if (lp == "hash" and launches["hash"] != 1) or (lp == "esc" and not launches["segment_reduce"]):
+            raise AssertionError(f"11a sparse step {lp}: launches {launches}")
+        log(f"11a sparse step {lp}, n={n}, b = 1 plan {plan.caps} {plan.hash_caps}, B block "
+            f"1/{nb}: {len(want[0])} entries, max rel err {err:.3g}, wall {wall:.3f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {launches}")
+        out[lp] = launches
+        del c, Bb
+    return out
+
+
+def placement_runs(g, grid, count, label):
+    """11b on ``grid``: ``multiply_placed`` of the masked L·U (mask L) of
+    graph ``g`` with every strategy of PLACE_STRATEGIES on the hash path,
+    all at one budget, the hash launch count set to 0 just before each run
+    and read just after. Each strategy's plan is first asked for at the
+    budget at which the identity plan has b >= PLACE_LEAST_B; one whose
+    permuted inputs alone exceed it on some process (its plan raises
+    ``MemoryError``) is recorded as refused there. The common budget is the
+    largest of the strategies' own b >= PLACE_LEAST_B budgets, so every
+    strategy plans at it. Every strategy's triplets must equal the identity
+    run's exactly (the values are small integer counts, exact in f32) and
+    sum to ``count``. Returns the budgets ({"identity": identity's
+    b >= PLACE_LEAST_B budget, "common": the run budget, "own": each
+    strategy's own, "refused": the strategies refused at identity's}) and
+    per strategy its b, caps, padded bytes, wall and launches."""
+    import torch
+
+    from repro_torch.core import placement
+    from repro_torch.core.batched import plan_batches
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.specs import PlanSpec
+    from repro_torch.kernels import spgemm_hash as H
+    from repro_torch.sparse_apps import graph_algorithms as ga
+    from repro_torch.tune import padded_comm_volume
+
+    L, U = ga._strict_parts(g)
+    spec = PlanSpec(local_path="hash")
+    places = {s: placement.compute_placement(L, U, s, mask=L) for s in PLACE_STRATEGIES}
+    own, refused = {}, []
+    for strategy, pl in places.items():
+        A, B, M = (scatter_to_grid(pl.apply_a(L), grid, "A"),
+                   scatter_to_grid(pl.apply_b(U), grid, "B"),
+                   scatter_to_grid(pl.apply_mask(L), grid, "C"))
+        sm = spec.replace(mask=M)
+        own[strategy], _ = budget_for_batches(A, B, grid, sm, PLACE_LEAST_B)
+        if strategy != "identity":
+            try:
+                plan_batches(A, B, grid, own["identity"], spec=sm)
+            except MemoryError:  # this placement's inputs alone exceed it on some process
+                refused.append(strategy)
+        del A, B, M
+    budgets = {"identity": own["identity"], "common": max(own.values()), "own": own,
+               "refused": refused}
+
+    out, base = {}, None
+    for strategy, pl in places.items():
+        H.hash_expand_insert_cuda.launches = 0
+        torch.cuda.synchronize(grid.device)
+        t0 = time.perf_counter()
+        res = placement.multiply_placed(L, U, grid, budgets["common"], mask=L, spec=spec,
+                                        placement=pl)
+        torch.cuda.synchronize(grid.device)
+        wall = time.perf_counter() - t0
+        p = res.result.plan
+        vol = padded_comm_volume(p, (grid.pr, grid.pc, grid.l))
+        total = int(round(float(res.vals.astype(np.float64).sum())))
+        rec = {"b": p.num_batches, "sel_cap": p.sel_cap, "piece_cap": p.caps.piece_cap,
+               "d_cap": p.caps.d_cap, "padded_bytes": vol.total_bytes,
+               "all_to_all_bytes": vol.all_to_all_bytes, "gather_bytes": vol.gather_bytes,
+               "wall": wall, "launches": H.hash_expand_insert_cuda.launches,
+               "retries": res.result.num_retries, "entries": len(res.vals), "sum": total}
+        if base is None:
+            base = res
+        elif not (np.array_equal(res.rows, base.rows) and np.array_equal(res.cols, base.cols)
+                  and np.array_equal(res.vals, base.vals)):
+            raise AssertionError(f"{label} {strategy}: the triplets differ from the identity run's")
+        if total != count or rec["launches"] != p.num_batches or res.result.local_path != "hash":
+            raise AssertionError(f"{label} {strategy}: sum {total} (want {count}), {rec}")
+        out[strategy] = rec
+    return budgets, out
+
+
+def log_placement(label, budgets, rec):
+    log(f"{label}: identity's b >= {PLACE_LEAST_B} budget {budgets['identity']} B, refused "
+        f"there: {budgets['refused'] or 'none'}; own b >= {PLACE_LEAST_B} budgets "
+        f"{budgets['own']}; all run at {budgets['common']} B; " + "; ".join(
+            f"{s}: b={x['b']}, sel_cap {x['sel_cap']}, piece_cap {x['piece_cap']}, d_cap "
+            f"{x['d_cap']}, padded {x['padded_bytes']} B (all_to_all {x['all_to_all_bytes']}, "
+            f"gather {x['gather_bytes']}), wall {x['wall']:.3f} s, {x['launches']} hash "
+            f"launches, {x['entries']} entries, sum {x['sum']}" for s, x in rec.items()))
+
+
+def _tune_full(n, budget, devices):
+    """Worker process: ``autotune`` of the n-node protein product (phase
+    3's matrix, made again from its seed on the CPU) for each device count,
+    under ``budget`` bytes a process (None: phase 3's hash budget, from the
+    host oracle). Returns {count: (TunedConfig, host s)} and the budget."""
+    from repro_torch.core import gen, symbolic
+    from repro_torch.core.batched import PlanInputs, plan_from_symbolic
+    from repro_torch.core.specs import PlanFloors, PlanSpec
+    from repro_torch.tune import autotune
+
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device="cpu")
+    if budget is None:
+        inputs = PlanInputs.from_host(a, a, (1, 1, 1))
+        probe = plan_from_symbolic(symbolic.host_symbolic_counts(a, a, (1, 1, 1)), inputs,
+                                   1 << 62, PlanSpec(local_path="hash"), PlanFloors())
+        budget = full_budget(probe, inputs.max_nnz_a, inputs.max_nnz_b)
+    out = {}
+    for d in devices:
+        t0 = time.perf_counter()
+        out[d] = (autotune(a, a, budget, num_devices=d), time.perf_counter() - t0)
+    return out, budget
+
+
+def full_budget(probe, max_nnz_a, max_nnz_b):
+    """Phase 3's per-process budget: inputs plus 1/1024 of the hash plan's
+    table bytes, so its plan has b = 1024."""
+    from repro_torch.core import symbolic
+
+    r = 12
+    hash_bytes = symbolic.estimate_mem_c_bytes(
+        probe.max_unmerged_nnz, probe.compression_est, r, local_path="hash")
+    return r * (max_nnz_a + max_nnz_b) + -(-r * -(-hash_bytes // r) // 1024)
+
+
+class BackgroundTune:
+    """The n = 2^20 autotunes in a worker process while the card works (the
+    tuner is host math)."""
+
+    def __init__(self, budget, devices):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(1)
+        self.pending = self.pool.apply_async(_tune_full, (N_FULL, budget, devices))
+
+    def result(self):
+        return self.pending.get(timeout=TUNE_WAIT_S)
+
+    def close(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def log_tuned(label, t, host_s):
+    log(f"{label}: tuner host time {host_s:.2f} s; {json.dumps(t.to_meta())}")
+
+
+def tuned_run_floors(t, n):
+    """``t``'s floors, with the batch count raised to ``hash_batch_floor``
+    when it runs the hash path (the planner does not know the i32 key
+    range, ROADMAP §3.1). Returns (floors, whether they were raised)."""
+    floor = hash_batch_floor(n, t.grid_shape) if t.spec.local_path == "hash" else 1
+    if t.floors.num_batches >= floor:
+        return t.floors, False
+    return t.floors.replace(num_batches=floor), True
+
+
+def run_tuned(t, a, grid, ref, n):
+    """The tuned configuration ``t`` on ``grid``: ``multiply_placed`` with
+    its strategy when it picked one (every rank gets the whole product),
+    else ``batched_summa3d`` on this rank's tile, both with its spec, floors
+    and exec spec, every launch count set to 0 just before and read just
+    after; held against scipy (the whole product, or the tile's part).
+    Returns (wall ms, max rel err, launches, BatchedResult)."""
+    import torch
+
+    from repro_torch.core import batched, convert, placement
+    from repro_torch.core.distsparse import scatter_to_grid
+
+    counters = counted_kernels()
+    for w in counters.values():
+        w.launches = 0
+    floors, _ = tuned_run_floors(t, n)
+    kw = dict(spec=t.spec, floors=floors, exec_spec=t.exec_spec)
+    if t.placement is not None:
+        torch.cuda.synchronize(grid.device)
+        t0 = time.perf_counter()
+        res = placement.multiply_placed(a, a, grid, t.per_process_memory,
+                                        strategy=t.placement, **kw)
+        torch.cuda.synchronize(grid.device)
+        wall = time.perf_counter() - t0
+        dev = grid.device
+        parts = [(torch.as_tensor(res.rows, device=dev), torch.as_tensor(res.cols, device=dev),
+                  torch.as_tensor(res.vals, device=dev))]
+        result = res.result
+    else:
+        A, B = scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B")
+        parts = []
+        torch.cuda.synchronize(grid.device)
+        t0 = time.perf_counter()
+        result = batched.batched_summa3d(
+            A, B, grid, t.per_process_memory,
+            consumer=lambda bi, cb, cm: parts.append(convert.batch_to_global(cb, cm)), **kw)
+        torch.cuda.synchronize(grid.device)
+        wall = time.perf_counter() - t0
+        if grid.p > 1:
+            mine = product_tile(ref[0], n, grid)
+            ref = (ref[0][mine], ref[1][mine])
+    err = check_product(parts, ref, n)
+    return 1e3 * wall, err, {k: w.launches for k, w in counters.items()}, result
+
+
+def tune_phase(grid, a14, budget14, ref14, pairs, background):
+    """11c: ``autotune`` for one device on the auto n = 2^14 input and
+    budget (phase 3), the tuned configuration run on the card against
+    scipy beside its predicted time; ``fit_overhead`` over the raw
+    predicted and measured ms of this script's runs (``pairs``: phase 3's
+    three and this one); the background n = 2^20 picks for 1 and 4
+    devices, logged."""
+    from repro_torch.tune import autotune, fit_overhead
+
+    t0 = time.perf_counter()
+    t = autotune(a14, a14, budget14, num_devices=1)
+    host_s = time.perf_counter() - t0
+    log_tuned("11c autotune n=2^14, 1 device", t, host_s)
+    ms, err, launches, res = run_tuned(t, a14, grid, ref14, a14.shape[0])
+    path = res.local_path
+    log(f"11c tuned n=2^14 on the card: path {path}, b={res.plan.num_batches}, placement "
+        f"{t.placement}, retries {res.num_retries}; predicted {t.predicted.total_ms:.3f} ms, "
+        f"measured {ms:.3f} ms, max rel err {err:.3g}, launches {launches}")
+    # the tuner prices with the default coefficients (overhead 1): raw ms
+    pairs = pairs + [("tuned n=2^14", t.predicted.total_ms, ms)]
+    coeffs = fit_overhead([(raw, meas) for _, raw, meas in pairs])
+    log("11c fit_overhead over " + "; ".join(
+        f"{label} raw {raw:.3f} ms, measured {meas:.3f} ms" for label, raw, meas in pairs)
+        + f": overhead {coeffs.overhead:.6g} on {card_lines(1)[0]}")
+    picks, full_b = background.result()
+    log(f"11c n=2^20 budget {full_b} B")
+    for d, (td, s) in sorted(picks.items()):
+        log_tuned(f"11c autotune n=2^20, {d} device(s) (worker process)", td, s)
+        if td.spec.local_path == "binned":
+            log(f"11c n=2^20, {d} device(s): the tuner picked binned; not run (its dense output "
+                f"tile is not charged by the planner, ROADMAP §3.1)")
+
+
+def phase3_pairs(runs, walls, nnz):
+    """(label, raw predicted ms, measured ms) of phase 3's runs on one card:
+    ``predict_cost`` of each run's plan and path, against its wall."""
+    from repro_torch.tune import predict_cost
+
+    out = []
+    for label, res in runs.items():
+        n_a = nnz[label]
+        c = predict_cost(res.plan, (1, 1, 1), n_a, n_a, path=res.local_path)
+        out.append((label, c.total_ms, 1e3 * walls[label]))
+    return out
+
+
+def summa_phase(grid, a_dense, tri_count):
+    """11a and 11b on one card: the dense step at n = N_DENSE (b = 1), the
+    sparse step at n = 2^18; the placed masked multiply at R-MAT scale TRI_PINNED_SCALE.
+    Returns the records the kernel line carries."""
+    from repro_torch.core import gen
+
+    ref = scipy_square(a_dense)
+    rec, dist = dense_steps(a_dense, grid, 1, ref)
+    log_dense(f"11a dense step, one card, n={a_dense.shape[0]}", rec, dist)
+    sparse = sparse_steps(grid)
+    g = gen.symmetrized(gen.rmat(TRI_PINNED_SCALE, edge_factor=16, seed=5, device=grid.device))
+    budget, place = placement_runs(g, grid, tri_count, "11b placement, one card")
+    log_placement(f"11b placement, one card, scale {TRI_PINNED_SCALE}", budget, place)
+    return {"dense": rec, "sparse": sparse, "placement": place}
+
+
+def phase11_rank(grid, p11, tri):
+    """Phase 11 on one rank of the distributed phase (see ``grid_rank``):
+    the dense step on each of ``p11["dense"]``'s (shape, b) at n =
+    ``p11["dense_n"]``; with ``p11["place_count"]``, the placed masked
+    multiply of ``tri`` on the launcher's grid."""
+    import torch.distributed as dist
+
+    from repro_torch.core import gen
+    from repro_torch.core.grid import make_grid
+
+    out = {"dense": {}}
+    n = p11["dense_n"]
+    ad = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device=grid.device)
+    dref = scipy_square(ad)
+    for shape, nb in p11["dense"]:
+        g = grid if shape == (grid.pr, grid.pc, grid.l) else make_grid(*shape, device=grid.device)
+        dist.barrier()
+        out["dense"][shape] = dense_steps(ad, g, nb, dref)
+    del ad, dref
+    if p11["place_count"] is not None:
+        dist.barrier()
+        out["placement"] = placement_runs(tri, grid, p11["place_count"],
+                                          f"11b rank {grid.rank}")
+    return out
+
+
+def tuned_rank(grid, t, n):
+    """One rank of the tuned n = 2^20 configuration ``t`` on its own grid
+    (``run_tuned``), against scipy's A @ A."""
+    from repro_torch.core import gen
+
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device=grid.device)
+    ms, err, launches, res = run_tuned(t, a, grid, scipy_square(a), n)
+    return {"ms": ms, "max_rel_err": err, "launches": launches, "b": res.plan.num_batches,
+            "path": res.local_path, "retries": res.num_retries,
+            "raised_floor": tuned_run_floors(t, n)[1]}
+
+
+def tuned_phase_four_cards(t, n):
+    """11c with --chips 4: the 4-device pick ``t`` at n on its grid, one
+    rank per card over NCCL (on this process when the grid is one point),
+    when its path is ESC or hash; logs each rank's wall beside the
+    prediction."""
+    from repro_torch.core.grid import make_grid
+    from repro_torch.launch import spawn
+
+    if t.spec.local_path not in ("esc", "hash"):
+        log(f"11c n=2^20, 4 devices: the tuner picked {t.spec.local_path}; not run (its dense "
+            f"output tile is not charged by the planner, ROADMAP §3.1)")
+        return
+    t0 = time.perf_counter()
+    if t.grid_shape == (1, 1, 1):
+        ranks = [tuned_rank(make_grid(1, 1, 1), t, n)]
+    else:
+        workdir = Path(__file__).resolve().parent / "build"
+        ranks = spawn.run(tuned_rank, t.grid_shape, backend="nccl", device="cuda", args=(t, n),
+                          timeout_s=GRID_TIMEOUT_S, workdir=workdir)
+    for r, x in enumerate(ranks):
+        log(f"11c tuned n=2^20 on grid {t.grid_shape} (nccl), rank {r}: predicted "
+            f"{t.predicted.total_ms:.3f} ms, {x}")
+    log(f"11c tuned n=2^20 (four cards): {time.perf_counter() - t0:.1f} s")
+
+
+def log_phase11_ranks(ranks, backend):
+    """Phase 11's records of every rank of the distributed phase, with the
+    checks across ranks: the same placed plans, every dense step's launches
+    as the schedule wants. Returns the densify/SpMM launches per rank."""
+    launches = {}
+    for shape in ranks[0]["p11"]["dense"]:
+        tag = "x".join(map(str, shape))
+        for r, x in enumerate(ranks):
+            rec, dist = x["p11"]["dense"][shape]
+            log_dense(f"11a dense step {tag} ({backend}), rank {r}", rec, dist)
+        launches[tag] = {s: [x["p11"]["dense"][shape][0][s]["launches"] for x in ranks]
+                         for s in ("allgather", "ring")}
+    if "placement" in ranks[0]["p11"]:
+        recs = [x["p11"]["placement"] for x in ranks]
+        for strategy in PLACE_STRATEGIES:
+            plans = {(x[1][strategy]["b"], x[1][strategy]["sel_cap"], x[1][strategy]["d_cap"])
+                     for x in recs}
+            if len(plans) != 1:
+                raise AssertionError(f"11b {strategy}: the ranks planned differently: {plans}")
+        for r, (budget, rec) in enumerate(recs):
+            log_placement(f"11b placement 2x2x1 ({backend}), rank {r}", budget, rec)
     return launches
 
 
@@ -2173,14 +2811,13 @@ def main() -> int:
     from repro_torch.kernels import spgemm_hash as H
 
     # 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[:chips]
-    for line in smi:
+    for line in card_lines(chips):
         log(line)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+
+    if chips == 4:  # the 4-device n = 2^20 tune runs on the host while the cards work
+        background = BackgroundTune(None, (4,))
 
     # 2. build
     t0 = time.perf_counter()
@@ -2190,8 +2827,17 @@ def main() -> int:
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
         log(f"  {name}: {secs:.2f} s; " + " | ".join(regs))
 
-    if chips == 4:  # 9 alone: one rank per card over NCCL, at full size
-        grid_phase(N_FULL, "nccl", with_mcl=True, tri_scale=TRI_SCALE)
+    if chips == 4:  # 9 and 11's grid parts alone: one rank per card over NCCL
+        try:
+            grid_phase(N_FULL, "nccl", with_mcl=True, tri_scale=TRI_SCALE, p11={
+                "dense_n": N_DENSE_NCCL, "dense": (((2, 2, 1), 1),), "place_count": None})
+            picks, full_b = background.result()
+        finally:
+            background.close()
+        t4, host_s = picks[4]
+        log_tuned(f"11c autotune n=2^20, 4 devices, budget {full_b} B (worker process)", t4,
+                  host_s)
+        tuned_phase_four_cards(t4, N_FULL)
         log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2270,6 +2916,11 @@ def main() -> int:
         raise AssertionError("auto n=2^14: a second run gives other bits")
     log(f"auto n=2^14: second run bit-identical, wall {wall2:.2f} s")
     del auto_parts, parts2
+    tune_pairs = phase3_pairs(runs, walls, {"hash n=2^20": nnz, "esc n=2^20": nnz,
+                                            "auto n=2^14": int(a14.nnz)})
+    # 11c's n = 2^20 tunes run on the host while the card works (after 3,
+    # whose host-driven batch loops they would share the cores with)
+    background = BackgroundTune(budget, (1, 4))
 
     # 4. kernels against their plain versions, on batch 0's operands
     a_cat, b_cat = batch0_operands(A, B, grid, rh.plan)
@@ -2299,13 +2950,15 @@ def main() -> int:
     api = ops_phase(a_cat, b_cat, rb.binned_caps, bin_of_k)
     log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
-    del a, A, B, a14, A14, B14, a_cat, b_cat, runs, rh, resc, rb, ref_full, ref14
+    del a, A, B, A14, B14, a_cat, b_cat, runs, rh, resc, rb, ref_full
     torch.cuda.empty_cache()
 
     # 6. the dense-path kernels against their plain versions
     t0 = time.perf_counter()
     a_mcl, cfg_dense = mcl_dense_input()
     dk = check_dense_kernels(*dense_batch0(a_mcl, grid, cfg_dense), cfg_dense.max_per_col)
+    acc = check_spmm_accumulate(gen.protein_similarity_like(
+        N_DENSE, blocks=N_DENSE // 64, intra_p=0.12, seed=0), N_DENSE)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
@@ -2319,8 +2972,21 @@ def main() -> int:
     # 10. the masked multiply and the §V-B applications
     masked = masked_phase(grid)
     torch.cuda.empty_cache()
-    # 9. four ranks on this card over gloo
-    grid_launches = grid_phase(N_GRID, "gloo", with_mcl=False, tri_scale=TRI_PINNED_SCALE)
+    # 11. the SUMMA3D steps, placement and the tuner on this card
+    t0 = time.perf_counter()
+    try:
+        p11 = summa_phase(grid, gen.protein_similarity_like(
+            N_DENSE, blocks=N_DENSE // 64, intra_p=0.12, seed=0), masked["tri16"])
+        tune_phase(grid, a14, budget14, ref14, tune_pairs, background)
+    finally:
+        background.close()
+    del a14, ref14
+    torch.cuda.empty_cache()
+    log(f"phase 11 (one card): {time.perf_counter() - t0:.1f} s")
+    # 9. four ranks on this card over gloo, with 11's grid parts
+    grid_launches, dense_grid = grid_phase(
+        N_GRID, "gloo", with_mcl=False, tri_scale=TRI_PINNED_SCALE,
+        p11={"dense_n": N_DENSE, "dense": DENSE_GLOO, "place_count": masked["tri16"]})
     per_rank = lambda label: {tag: n for (tag, lab), n in grid_launches.items() if lab == label}
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
@@ -2383,6 +3049,24 @@ def main() -> int:
             "max_abs_err": err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
         })
+    # phase 11's launches of each kernel it reaches, each run's counts set
+    # to 0 just before it and read just after; SpMM's accumulate mode
+    row = {k["name"]: k for k in kernels}
+    for name in ("densify", "spmm"):
+        row[name]["phase11_dense_step_launches"] = {
+            "one_card_n2^15": {s: x["launches"][name] for s, x in p11["dense"].items()},
+            **{f"gloo_{tag}_per_rank": {s: [x[name] for x in per] for s, per in recs.items()}
+               for tag, recs in dense_grid.items()}}
+    acc_err, acc_ms, acc_plain, acc_lib, acc_bytes, acc_ops = acc
+    acc_bound, acc_by = bound_ms(acc_bytes, acc_ops)
+    row["spmm"]["accumulate"] = {"max_rel_err": acc_err, "ms": acc_ms, "plain_ms": acc_plain,
+                                 "bound_ms": acc_bound, "bound_by": acc_by,
+                                 "library_ms": acc_lib}
+    row["hash_insert"]["phase11_launches"] = {
+        "sparse_step_n2^18": p11["sparse"]["hash"]["hash"],
+        "placement": {s: x["launches"] for s, x in p11["placement"].items()}}
+    row["segment_reduce"]["phase11_sparse_step_n2^18_launches"] = \
+        p11["sparse"]["esc"]["segment_reduce"]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

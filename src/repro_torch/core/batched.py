@@ -22,7 +22,12 @@ The driver follows the paper's phase structure:
 Overflow robustness (§IV-A): a nonzero flag sends that batch through the
 synchronous retry ladder — selection capacity first, then the multiply
 capacities (2× per attempt). A doubling that would pass the memory
-ceiling replans the batch at finer batching instead.
+ceiling replans the batch at finer batching instead (``ExecSpec.degrade``;
+off, the ladder is unbounded).
+
+``plan_batches`` and ``batched_summa3d`` still take the old keyword
+surface (``slack=``, ``caps_floor=``, ``lookahead=``, …) through
+``specs.resolve_specs``, under a ``DeprecationWarning``.
 """
 from __future__ import annotations
 
@@ -36,9 +41,9 @@ import torch
 from . import semiring as sr
 from .distsparse import DistSparse, from_tile, tile_nnz
 from .grid import COL_AX, ROW_AX, Grid
-from .placement import BLOCK_CYCLIC
+from .placement import BLOCK_CYCLIC, Placement
 from .sparse import hstack_remap
-from .specs import ExecSpec, PlanFloors, PlanSpec
+from .specs import ExecSpec, PlanFloors, PlanSpec, resolve_specs
 from .summa3d import BatchCaps, BinnedCaps, HashCaps, _squeeze_tile, summa3d_fused_step
 from .symbolic import (
     HASH_LOAD_FACTOR,
@@ -130,6 +135,18 @@ def symbolic3d_counts(
     )
 
 
+def symbolic3d(a: DistSparse, b: DistSparse, grid: Grid) -> np.ndarray:
+    """Per-(process, local column of B) flops upper bound, (pr, pc, l, tn_b)
+    on the host:
+
+      flops[i,j,k,c] = Σ_{t ∈ B(:, block j, layer k), col(t)=c}
+                           nnz(A^(k)(row-block i, k_idx(t)))
+
+    the partial products process (i, j, k) forms for output column c in the
+    numeric step. ``symbolic3d_counts`` gives the fuller payload."""
+    return symbolic3d_counts(a, b, grid).percol
+
+
 def _mask_tile_colcounts(mask: DistSparse, grid: Grid) -> np.ndarray:
     """Host oracle of the masked counts ``symbolic3d_counts`` makes on the
     device: every tile's entries per local column, (pr, pc, l, wl), from the
@@ -179,15 +196,20 @@ def plan_batches(
     per_process_memory: int,
     spec: Optional[PlanSpec] = None,
     floors: Optional[PlanFloors] = None,
+    **legacy,
 ) -> BatchPlan:
     """Run the symbolic step and derive b + capacities (host math).
 
     A bare call (no spec) plans ``local_path="esc"``; a passed spec uses its
-    own default ("auto" — the driver's semantics). See
-    ``plan_from_symbolic`` for the policy.
+    own default ("auto" — the driver's semantics). The old keyword surface
+    (``r_bytes=``, ``slack=``, ``caps_floor=``, …) maps onto the specs
+    under a ``DeprecationWarning``. See ``plan_from_symbolic`` for the
+    policy.
     """
-    spec = spec if spec is not None else PlanSpec(local_path="esc")
-    floors = floors if floors is not None else PlanFloors()
+    spec, floors, _ = resolve_specs(
+        spec, floors, None, legacy, default_local_path="esc",
+        where="plan_batches", allow_exec=False,
+    )
     counts = symbolic3d_counts(a, b, grid, mask=spec.mask)
     nnz_a, nnz_b = tile_nnz(a, grid), tile_nnz(b, grid)
     inputs = PlanInputs(
@@ -264,7 +286,8 @@ def plan_from_symbolic(
     pow2-quantize and floor the derived capacities so iterated multiplies
     keep one plan. ``spec.reserved_bytes`` is taken off the budget first
     (output already committed by the caller). Every fold of per-column
-    counts into batches goes through the block-cyclic ``Distribution``.
+    counts into batches goes through ``spec.distribution`` (None: the
+    block-cyclic ``Distribution``).
 
     A strict mask (``counts.mask_colcounts`` without
     ``spec.mask_complement``) bounds the survivors per column c of process
@@ -285,7 +308,7 @@ def plan_from_symbolic(
             f"memory ({per_process_memory})"
         )
     per_process_memory = per_process_memory - spec.reserved_bytes
-    dist = BLOCK_CYCLIC
+    dist = spec.distribution if spec.distribution is not None else BLOCK_CYCLIC
     percol = counts.percol  # (pr, pc, l, tn_b)
     pr, pc, l, tn_b = percol.shape
     masked = counts.mask_colcounts is not None and not spec.mask_complement
@@ -470,19 +493,45 @@ def batch_column_map(n: int, grid: Grid, num_batches: int, batch: int) -> np.nda
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class RunReport:
-    """Structured robustness accounting for one driver run."""
+    """Structured robustness accounting for one driver run or iterated loop.
+
+    ``batched_summa3d`` fills the ladder fields (retries / replans /
+    degradations); the resilient iterated loops merge per-iteration reports
+    and add the checkpoint / straggler / restart fields. JSON round-trips
+    via ``to_dict``/``from_dict``, so the report survives a checkpoint.
+    """
 
     retries: int = 0  # overflow retry dispatches (sync ladder steps)
     sel_retries: int = 0  # selection-capacity retries among those
     replans: int = 0  # batches replanned at finer batching (degradation)
     ladder_blocked: int = 0  # cap doublings refused by the memory ceiling
     degraded_batches: Tuple[Tuple[int, int], ...] = ()  # (batch, split)
+    straggler_events: int = 0  # EWMA watchdog firings (iterated loops)
+    restarts: int = 0  # preemption restore-and-continue count
+    refused_restores: int = 0  # corrupt checkpoints refused at restore
+    checkpoint_stalls: int = 0  # saves that blocked on a prior in-flight write
+    checkpoint_stall_s: float = 0.0
+    checkpoint_bytes: int = 0  # total checkpoint bytes written
 
     def merged(self, other: "RunReport") -> "RunReport":
         """Field-wise accumulation (counts add, degradations concatenate)."""
         return RunReport(*(
             x + y for x, y in zip(dataclasses.astuple(self), dataclasses.astuple(other))
         ))
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["degraded_batches"] = [list(x) for x in self.degraded_batches]
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RunReport":
+        d = dict(d)
+        d["degraded_batches"] = tuple(
+            tuple(int(v) for v in x) for x in d.get("degraded_batches", ())
+        )
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 def plan_footprint(
@@ -535,6 +584,7 @@ class BatchedResult:
     plan: BatchPlan
     num_retries: int
     consumed: list  # consumer outputs per batch
+    binned: bool = False  # did the sparse local multiply run k-binned?
     binned_caps: Optional[BinnedCaps] = None  # the BinnedCaps used
     local_path: str = "esc"  # local multiply actually executed
     hash_caps: Optional[HashCaps] = None  # the HashCaps used (hash)
@@ -565,6 +615,7 @@ def batched_summa3d(
     floors: Optional[PlanFloors] = None,
     exec_spec: Optional[ExecSpec] = None,
     postprocess: Optional[Callable[[int, object], object]] = None,
+    **legacy,
 ) -> BatchedResult:
     """Multiply A·B in batches; the consumer sees each batch, then it is freed.
 
@@ -590,25 +641,62 @@ def batched_summa3d(
     selects the batch's slice of the C-layout mask and keeps C ⊙ M (or
     C ⊙ ¬M with ``spec.mask_complement``); the mask never leaves the grid.
 
+    ``exec_spec.binned`` is the legacy two-way override: True forces the
+    k-binned multiply, False pins ESC, "auto" (default) leaves the choice
+    to ``spec.local_path``. An override also plans the ESC budget, as the
+    reference does.
+
     The retry ladder is bounded by the memory ceiling
     ``max(per_process_memory, footprint(planned caps))``: a batch whose next
     doubling would pass it is replanned as ``d`` sub-batches under a
     ``nb·d`` plan and merged back, recorded in ``BatchedResult.report``.
+    ``exec_spec.degrade=False`` lifts the ceiling (the unbounded ladder).
+    ``exec_spec.sorted_merge`` is the step's Merge-Fiber kind.
+
+    ``spec.placement`` says the operands already carry a ``Placement``'s
+    permutations: the column maps the consumer gets are original columns
+    (``placement.multiply_placed`` permutes and inverts end to end).
+    Anything but a ``Placement`` there, or a distribution other than the
+    block-cyclic one, is refused: the device step runs only that one.
+    The old keyword surface (``slack=``, ``lookahead=``, ``caps_floor=``,
+    …) maps onto the specs under a ``DeprecationWarning``.
     """
-    spec = spec if spec is not None else PlanSpec()
-    floors = floors if floors is not None else PlanFloors()
-    ex = exec_spec if exec_spec is not None else ExecSpec()
+    spec, floors, ex = resolve_specs(
+        spec, floors, exec_spec, legacy, default_local_path="auto",
+        where="batched_summa3d",
+    )
+    placement = spec.placement
+    if placement is not None and not isinstance(placement, Placement):
+        raise ValueError(
+            f"spec.placement must be a core.placement.Placement whose "
+            f"permutations the operands ALREADY carry, got {placement!r} — "
+            f"use placement.multiply_placed (or compute_placement + "
+            f"apply_a/apply_b) to permute host operands before scattering"
+        )
+    if spec.distribution is not None and (
+        getattr(spec.distribution, "name", None) != BLOCK_CYCLIC.name
+    ):
+        raise ValueError(
+            f"the device step implements only the block-cyclic "
+            f"distribution; got {spec.distribution!r}. Custom Distribution "
+            f"objects are planner-side — price them via plan_from_symbolic."
+        )
     r_bytes = spec.r_bytes
     local_path = spec.local_path
     mask, mask_complement = spec.mask, spec.mask_complement
-    max_retries = ex.max_retries
+    max_retries, degrade = ex.max_retries, ex.degrade
+    sorted_merge, binned = ex.sorted_merge, ex.binned
     assert local_path in ("auto", "esc", "binned", "hash"), local_path
     assert path in ("sparse", "dense"), path
     dense = path == "dense"
+    # the plan budgets the hash path only when the driver could dispatch it:
+    # an explicit binned override pins the classic O(flops) budget
+    plan_local_path = local_path
+    if local_path == "auto" and (binned != "auto" or dense):
+        plan_local_path = "esc"
     plan = plan_batches(
         a, b, grid, per_process_memory,
-        spec=spec.replace(local_path="esc") if dense and local_path == "auto" else spec,
-        floors=floors,
+        spec=spec.replace(local_path=plan_local_path), floors=floors,
     )
     nb = plan.num_batches
     n_cols = b.shape[1]
@@ -618,8 +706,10 @@ def batched_summa3d(
         use_binned = False
     elif local_path == "binned":
         use_binned = True
-    else:
+    elif binned == "auto":
         use_binned = semiring.name == "plus_times" and plan.binned_profitable
+    else:
+        use_binned = bool(binned)
     if use_binned and semiring.name != "plus_times":
         raise ValueError(
             f"k-binned local multiply requires plus_times, got {semiring.name}"
@@ -666,8 +756,8 @@ def batched_summa3d(
         """Enqueue one fused batch step; nothing waits for the device here."""
         return summa3d_fused_step(
             a, b, bi, bok, mask, grid=grid, num_batches=num_batches, sel_cap=sel_cap_,
-            caps=caps_, semiring=semiring, path=path, kbin=kb_, hashc=hc_,
-            mask_cap=mask_cap_, mask_complement=mask_complement,
+            caps=caps_, semiring=semiring, sorted_merge=sorted_merge, path=path, kbin=kb_,
+            hashc=hc_, mask_cap=mask_cap_, mask_complement=mask_complement,
         )
 
     # capacities actually used, including retry growth — reported on the
@@ -680,7 +770,7 @@ def batched_summa3d(
         selection makes the multiply flags unreliable), multiply second; the
         exact mask-slice capacity doubles with the multiply caps, so the
         ladder stays monotone. A multiply-cap doubling past the memory
-        ceiling raises `_LadderBlocked`. ``record=False`` (degraded
+        ceiling raises `_LadderBlocked` (with ``degrade`` on). ``record=False`` (degraded
         sub-batches) skips the ``used`` bookkeeping."""
         if o[0] > 0:
             sel_cap_ = min(_rup8(max(sel_cap_ * 2, 8)), b.cap)
@@ -688,7 +778,7 @@ def batched_summa3d(
         elif o[1] > 0:
             cand_caps = caps_.doubled()
             cand_hc = hc_.doubled() if hc_ is not None else None
-            if _footprint(cand_caps, sel_cap_, cand_hc) > ladder_ceiling:
+            if degrade and _footprint(cand_caps, sel_cap_, cand_hc) > ladder_ceiling:
                 rep["ladder_blocked"] += 1
                 raise _LadderBlocked(
                     f"cap doubling to {cand_caps} exceeds the "
@@ -814,12 +904,20 @@ def batched_summa3d(
             except _LadderBlocked:
                 c_batch = run_batch_degraded(bi)
             c_post = post(bi, c_batch)
-        consumed.append(consumer(bi, c_post, batch_column_map(n_cols, grid, nb, bi)))
+        consumed.append(consumer(bi, c_post, _col_map(bi)))
+
+    def _col_map(bi: int) -> np.ndarray:
+        col_map = batch_column_map(n_cols, grid, nb, bi)
+        if placement is not None:
+            # permuted operands: consumers get ORIGINAL column ids (rows stay
+            # permuted; multiply_placed inverts them after collection)
+            col_map = placement.original_cols(col_map)
+        return col_map
 
     if not ex.pipelined:
         for bi in range(nb):
             c_batch = post(bi, run_batch_guarded(bi))
-            consumed.append(consumer(bi, c_batch, batch_column_map(n_cols, grid, nb, bi)))
+            consumed.append(consumer(bi, c_batch, _col_map(bi)))
     else:
         window = LookaheadWindow.from_exec(ex, finish)
         for bi in range(nb):
@@ -838,7 +936,7 @@ def batched_summa3d(
         degraded_batches=tuple(rep["degraded"]),
     )
     return BatchedResult(
-        plan=plan, num_retries=retries, consumed=consumed,
+        plan=plan, num_retries=retries, consumed=consumed, binned=use_binned,
         binned_caps=used["kb"], local_path=executed, hash_caps=used["hashc"],
         report=report,
     )

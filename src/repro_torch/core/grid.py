@@ -24,6 +24,9 @@ other shape runs one process per grid point over ``torch.distributed``:
   * The backend is the caller's: NCCL for one rank per card, gloo for the
     CPU and for several ranks sharing one card. gloo runs every operation
     used here on CUDA tensors, so the grid never moves data to the host.
+  * The shift along an axis (``ppermute``, the Cannon ring's step) is an
+    ``all_to_all_single`` with uneven splits, which both backends run on
+    the tensor's device; a backend that refuses it raises.
 """
 from __future__ import annotations
 
@@ -104,6 +107,28 @@ class Grid:
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x, group=self.groups[axis])
         return out
+
+    def ppermute(self, x: Tensor, axis: str, shift: int) -> Tensor:
+        """Cyclic shift along ``axis``: the process at axis index s sends
+        ``x`` to index (s − shift) mod size and returns what index
+        (s + shift) mod size sent (``lax.ppermute`` with the pairs
+        (s, (s − shift) % size)). Every process of one subgroup passes the
+        same ``shift`` and an ``x`` of one shape; subgroups may shift by
+        different amounts. One ``all_to_all_single`` with uneven splits
+        carries it, the whole of ``x`` to one peer and nothing to the
+        others, on the tensor's own device over NCCL or gloo."""
+        n = self.axis_size(axis)
+        if n == 1 or shift % n == 0:
+            return x
+        s = self.axis_index(axis)
+        flat = x.contiguous().reshape(-1)
+        send = [0] * n
+        recv = [0] * n
+        send[(s - shift) % n] = recv[(s + shift) % n] = flat.numel()
+        out = torch.empty_like(flat)
+        dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
+                               group=self.groups[axis])
+        return out.reshape(x.shape)
 
     def psum(self, x: Tensor, axis: str) -> Tensor:
         if self.axis_size(axis) == 1:

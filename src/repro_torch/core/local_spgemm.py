@@ -54,7 +54,8 @@ def _colptr(a_csc: SparseCOO) -> Tuple[Tensor, Tensor]:
 # ---------------------------------------------------------------------------
 # SpMM: sparse A (m×k) times dense B (k×n) -> dense (m×n)
 # ---------------------------------------------------------------------------
-def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -> Tensor:
+def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES,
+         out: Tensor = None) -> Tensor:
     """Sparse A times dense B.
 
     On the card this is the SpMM kernel (``kernels.spmm_kernel``), which sums
@@ -62,17 +63,27 @@ def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES) -
     semiring-generic plain version: gather B's rows by A's column index,
     multiply, and segment-reduce by A's row. Either way C has the dtype of
     A's values times B's (bfloat16 when both are), as the reference's.
+
+    ``out`` (an f32 (m, n) tile; sum monoids only) takes the product added
+    in place, ``out + A·B``, and is returned: on the card the kernel's
+    accumulate mode, so no second tile is made.
     """
     m, k = a.shape
     assert b_dense.shape[0] == k, (a.shape, tuple(b_dense.shape))
     valid = a.valid_mask()
+    if out is not None and semiring.add_kind != "sum":
+        raise ValueError(f"spmm into out adds: sum monoids only, got {semiring.name}")
     if b_dense.is_cuda:
         if semiring.name != "plus_times":
             raise ValueError(f"the SpMM kernel computes plus_times, got {semiring.name}")
         rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
         vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
+        if out is not None:
+            return spmm_entries(rows, a.cols, vals, b_dense, m, out=out)
         out = spmm_entries(rows, a.cols, vals, b_dense, m)
         return out.to(torch.result_type(a.vals, b_dense))
+    if out is not None:
+        return out.add_(spmm(a, b_dense, semiring))
     n = b_dense.shape[1]
     # pad B with a zero row for sentinel column indices
     b_pad = torch.cat([b_dense, torch.zeros((1, n), dtype=b_dense.dtype)], 0)

@@ -8,13 +8,20 @@
     ``merged()`` (elementwise max), so iterated callers keep one capacity
     plan as nnz drifts. JSON round-trips via ``to_meta``/``from_meta``.
   * ``ExecSpec``   — HOW to run: pipelined schedule, lookahead depth, retry
-    budget.
+    budget, graceful degradation, the Merge-Fiber kind and the legacy
+    two-way k-binned override.
 
-Placement permutations are not ported yet.
+``TunedConfig`` (``repro_torch.tune``) is one of each plus a grid shape.
+
+The old keyword surface is still accepted: ``resolve_specs`` maps legacy
+keyword arguments onto the spec objects (overriding any field also set on
+a passed spec) under one ``DeprecationWarning``, and an unknown keyword
+raises ``TypeError``, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 from .distsparse import DistSparse
@@ -41,6 +48,14 @@ class PlanSpec:
     reserved_bytes: int = 0
     force_num_batches: Optional[int] = None
     kbin_candidates: Optional[Tuple[int, ...]] = None
+    # Structure-aware placement (core.placement). ``placement`` says the
+    # operands ALREADY carry this Placement's permutations: the driver maps
+    # every consumer-facing column map back to original columns
+    # (``placement.multiply_placed`` permutes and inverts end to end).
+    # ``distribution`` swaps the planner's tile→batch fold (None is
+    # placement.BLOCK_CYCLIC, the only one the device step runs).
+    placement: Optional[object] = None  # core.placement.Placement
+    distribution: Optional[object] = None  # core.placement.Distribution
 
     def replace(self, **kw) -> "PlanSpec":
         return dataclasses.replace(self, **kw)
@@ -134,3 +149,97 @@ class ExecSpec:
     pipelined: bool = True
     lookahead: int = 2
     max_retries: int = 4
+    degrade: bool = True  # False: the unbounded retry ladder, no replans
+    sorted_merge: bool = True  # Merge-Fiber merges the sorted pieces
+    binned: object = "auto"  # legacy two-way override; prefer PlanSpec.local_path
+
+    def replace(self, **kw) -> "ExecSpec":
+        return dataclasses.replace(self, **kw)
+
+
+# legacy keyword -> spec field, one map per spec object
+_PLAN_KEYS = {
+    "mask": "mask",
+    "mask_complement": "mask_complement",
+    "local_path": "local_path",
+    "slack": "slack",
+    "r_bytes": "r_bytes",
+    "reserved_bytes": "reserved_bytes",
+    "force_num_batches": "force_num_batches",
+    "kbin_candidates": "kbin_candidates",
+}
+_FLOOR_KEYS = {
+    "caps_floor": "caps",
+    "sel_cap_floor": "sel_cap",
+    "num_batches_floor": "num_batches",
+    "kbin_caps_floor": "kbin_caps",
+    "hash_caps_floor": "hash_caps",
+    "caps_pow2": "caps_pow2",
+}
+_EXEC_KEYS = {
+    "pipelined": "pipelined",
+    "lookahead": "lookahead",
+    "max_retries": "max_retries",
+    "degrade": "degrade",
+    "sorted_merge": "sorted_merge",
+    "binned": "binned",
+}
+
+
+def resolve_specs(
+    spec: Optional[PlanSpec],
+    floors: Optional[PlanFloors],
+    exec_spec: Optional[ExecSpec],
+    legacy: dict,
+    *,
+    default_local_path: str = "auto",
+    where: str = "batched_summa3d",
+    allow_exec: bool = True,
+) -> Tuple[PlanSpec, PlanFloors, ExecSpec]:
+    """Normalize (spec, floors, exec_spec, **legacy) to the three specs.
+
+    Each legacy keyword is mapped onto its spec field (overriding the passed
+    spec) under a single ``DeprecationWarning``; an unknown keyword raises
+    ``TypeError`` as a real signature would. No spec means
+    ``PlanSpec(local_path=default_local_path)``.
+    """
+    if spec is not None and not isinstance(spec, PlanSpec):
+        raise TypeError(
+            f"{where}: spec must be a PlanSpec, got {type(spec).__name__} "
+            f"(old positional keyword arguments must be passed by name)"
+        )
+    if floors is not None and not isinstance(floors, PlanFloors):
+        raise TypeError(
+            f"{where}: floors must be a PlanFloors, got {type(floors).__name__}"
+        )
+    if spec is None:
+        spec = PlanSpec(local_path=default_local_path)
+    floors = floors if floors is not None else PlanFloors()
+    ex = exec_spec if exec_spec is not None else ExecSpec()
+    if legacy:
+        known = set(_PLAN_KEYS) | set(_FLOOR_KEYS)
+        if allow_exec:
+            known |= set(_EXEC_KEYS)
+        unknown = set(legacy) - known
+        if unknown:
+            raise TypeError(
+                f"{where}() got unexpected keyword argument(s) "
+                f"{sorted(unknown)}"
+            )
+        warnings.warn(
+            f"{where}: keyword argument(s) {sorted(legacy)} are deprecated; "
+            f"pass PlanSpec / PlanFloors / ExecSpec instead",
+            DeprecationWarning,
+            stacklevel=3,
+        )
+        spec = spec.replace(**{
+            _PLAN_KEYS[k]: v for k, v in legacy.items() if k in _PLAN_KEYS
+        })
+        floors = floors.replace(**{
+            _FLOOR_KEYS[k]: v for k, v in legacy.items() if k in _FLOOR_KEYS
+        })
+        if allow_exec:
+            ex = ex.replace(**{
+                _EXEC_KEYS[k]: v for k, v in legacy.items() if k in _EXEC_KEYS
+            })
+    return spec, floors, ex

@@ -15,7 +15,13 @@ One call of ``summa3d_fused_step`` computes one batch of the 3D multiply:
 
 The dense path (``path="dense"``) densifies the gathered B once, streams the
 gathered A through it (SpMM), and reduce-scatters the dense D tile along the
-layer axis. A mask (paper §V-B) enters the step as a C-layout operand: the
+layer axis. Outside the fused step, ``summa3d_dense_step`` runs that path on
+a batch's B block under one of two schedules: "allgather" (the gathers
+above) or "ring", Cannon's schedule (a skew of both operands, then per
+stage one multiply of the aligned tiles and a unit shift of each along its
+grid axis), which holds one densified B tile instead of the gathered
+stage tiles (paper §IV-A); ``summa3d_sparse_step`` runs the sparse path.
+A mask (paper §V-B) enters the step as a C-layout operand: the
 batch's slice of it is gathered along the fiber into the D tile's space,
 and the local multiply filters against it (the dense path zeroes D off
 it). ``reassemble_operands`` turns one multiply's batched C outputs
@@ -23,6 +29,8 @@ into the next iteration's A and B on the grid (MCL, paper §V-C).
 
 Every collective goes through the ``Grid``, and every process runs this
 code on its own tile; on the 1×1×1 grid the collectives are the identity.
+The reference's ``_pmax_grid`` and ``_psum_grid`` (a reduction over all
+three axes) are ``Grid.pmax_all`` and ``Grid.psum_all``.
 Padding entries are rewritten to the contraction sentinel (k_tot) before
 gathering, so offset arithmetic cannot alias padding onto real
 coordinates; values are zero as a second guarantee.
@@ -150,9 +158,92 @@ def _gather_B(b: SparseCOO, grid: Grid) -> SparseCOO:
     return SparseCOO(g_rows, g_cols, g_vals, nnz, (k_tot, tn))
 
 
+# ---------------------------------------------------------------------------
+# Dense-accumulator path outside the fused step: two broadcast schedules
+# ---------------------------------------------------------------------------
+def _shift_tile(t: SparseCOO, grid: Grid, axis: str, shift: int) -> SparseCOO:
+    """The tile that reaches this process when every process of its line
+    along ``axis`` passes its ``t`` on by ``Grid.ppermute(·, axis, shift)``:
+    the one held ``shift`` places further along. Every tile of one matrix
+    has one capacity, so the four fields travel as one i32 buffer."""
+    assert t.vals.dtype == torch.float32, t.vals.dtype
+    cap = t.cap
+    buf = torch.cat([t.rows, t.cols, t.vals.view(torch.int32), t.nnz.reshape(1)])
+    buf = grid.ppermute(buf, axis, shift)
+    return SparseCOO(buf[:cap], buf[cap:2 * cap], buf[2 * cap:3 * cap].view(torch.float32),
+                     buf[3 * cap], t.shape)
+
+
+def _skew(d: DistSparse, kind: str, grid: Grid) -> SparseCOO:
+    """Cannon's initial alignment as a permutation of tiles across processes:
+    A's row i shifts left by i (new[i, j] = old[i, (j + i) mod pc]), B's
+    column j up by j (new[i, j] = old[(i + j) mod pr, j]). Returns the
+    tile this process holds after it."""
+    i, j, _ = grid.coords
+    t = _squeeze_tile(d, grid)
+    return _shift_tile(t, grid, COL_AX, i) if kind == "A" else _shift_tile(t, grid, ROW_AX, j)
+
+
+def summa3d_dense_step(
+    a: DistSparse, b_batch: DistSparse, grid: Grid,
+    semiring: sr.Semiring = sr.PLUS_TIMES, schedule: str = "allgather",
+) -> Tensor:
+    """One batched-SUMMA3D step on the dense-accumulator path.
+
+    ``b_batch`` is the batch's column block of B (kind "B" layout, tile
+    (wl, tn_b)). Returns this process's f32 tile of the C batch as
+    (1, 1, 1, tm, tn_b/l), the fiber merge included (``psum_scatter``).
+
+    ``schedule="allgather"`` gathers A along the grid row and B along the
+    grid column, densifies the gathered B once and runs one SpMM.
+    ``schedule="ring"`` (Cannon; pr == pc) skews both operands, then runs pc
+    stages: SpMM of the current A tile against the densified current B tile
+    (both from one contraction block), summed into the D tile in stage
+    order, with a unit shift of A along the grid row and of B along the
+    grid column between stages. It holds one densified (wl × tn_b) B tile
+    where allgather holds the gathered (pr·wl × tn_b) one, and it adds
+    the stages in another order than allgather's single SpMM.
+    """
+    assert semiring.add_kind == "sum", "dense path requires a sum monoid"
+    assert schedule in ("allgather", "ring"), schedule
+    tm_a, wl_a = a.tile_shape
+    _, tn_b = b_batch.tile_shape
+    assert tn_b % grid.l == 0
+    if schedule == "ring":
+        assert grid.pr == grid.pc, "Cannon ring needs a square layer grid"
+        a_t, b_t = _skew(a, "A", grid), _skew(b_batch, "B", grid)
+        d_tile = None
+        for stage in range(grid.pc):
+            if stage:
+                a_t = _shift_tile(a_t, grid, COL_AX, 1)
+                b_t = _shift_tile(b_t, grid, ROW_AX, 1)
+            # every slot declared live: padding carries the sentinels and
+            # zero values
+            a_cur = SparseCOO(a_t.rows, a_t.cols,
+                              torch.where(a_t.rows < tm_a, a_t.vals, torch.zeros_like(a_t.vals)),
+                              torch.tensor(a_t.cap, dtype=torch.int32, device=a_t.device),
+                              (tm_a, wl_a))
+            b_dense = SparseCOO(b_t.rows, b_t.cols,
+                                torch.where(b_t.cols < tn_b, b_t.vals,
+                                            torch.zeros_like(b_t.vals)),
+                                torch.tensor(b_t.cap, dtype=torch.int32, device=b_t.device),
+                                (wl_a, tn_b)).to_dense()
+            d_tile = spmm(a_cur, b_dense, semiring, out=d_tile)
+            del b_dense
+    else:
+        d_tile = spmm(_gather_A(_squeeze_tile(a, grid), grid),
+                      _gather_B(_squeeze_tile(b_batch, grid), grid).to_dense(), semiring)
+    # AllToAll-Fiber + Merge-Fiber == reduce-scatter along the fiber
+    c_tile = grid.psum_scatter(d_tile, LAYER_AX, dim=1)  # (tm, tn_b/l)
+    return c_tile.reshape(1, 1, 1, *c_tile.shape)
+
+
+# ---------------------------------------------------------------------------
+# Sparse path
+# ---------------------------------------------------------------------------
 def _sparse_tile_body(
     a_loc: SparseCOO, b_loc: SparseCOO, grid: Grid, caps: BatchCaps,
-    semiring: sr.Semiring,
+    semiring: sr.Semiring, sorted_merge: bool = True,
     kbin: BinnedCaps = None, bin_of_k: Tensor = None,
     hashc: HashCaps = None,
     mask: SparseCOO = None, mask_complement: bool = False,
@@ -167,6 +258,8 @@ def _sparse_tile_body(
     invariants are identical. ``mask`` (a SparseCOO over the D tile's
     (tm, tn_b) space) filters the local multiply's products, so only
     survivors take D, piece and C capacity and cross the fiber.
+    ``sorted_merge`` merges the received pieces (they are column splits of
+    row-major-sorted D tiles); False coalesces them with one sort.
     """
     assert kbin is None or hashc is None, "kbin and hashc are exclusive"
     l = grid.l
@@ -213,9 +306,34 @@ def _sparse_tile_body(
         for k in range(l)
     ]
     c_tile, ovf_merge = merge_sparse(
-        parts, caps.c_cap, semiring, assume_sorted=True
+        parts, caps.c_cap, semiring, assume_sorted=sorted_merge
     )
     return c_tile, ovf_mul + ovf_split + ovf_merge
+
+
+def summa3d_sparse_step(
+    a: DistSparse, b_batch: DistSparse, grid: Grid, caps: BatchCaps,
+    semiring: sr.Semiring = sr.PLUS_TIMES, sorted_merge: bool = True,
+    kbin: BinnedCaps = None, bin_of_k: Tensor = None, hashc: HashCaps = None,
+) -> Tuple[DistSparse, Tensor]:
+    """One batched-SUMMA3D step on the sparse path, on a batch's B block
+    (kind "B" layout, tile (wl, tn_b)): ``(c, ovf)``.
+
+    ``c`` is a C-kind ``DistSparse`` with tiles (tm, tn_b/l), whose global
+    columns follow ``batched.batch_column_map``; ``ovf`` is an i32 scalar,
+    maximised over the grid, > 0 when a capacity of ``caps`` (or of
+    ``kbin``/``hashc``) was exceeded. ``sorted_merge`` runs Merge-Fiber as
+    a merge of the sorted pieces (§IV-D); ``kbin``/``bin_of_k`` select the
+    k-binned local multiply, ``hashc`` the hash multiply, neither ESC.
+    """
+    tn_b = b_batch.tile_shape[1]
+    assert tn_b % grid.l == 0
+    c_tile, ovf = _sparse_tile_body(
+        _squeeze_tile(a, grid), _squeeze_tile(b_batch, grid), grid, caps, semiring,
+        sorted_merge, kbin=kbin, bin_of_k=bin_of_k, hashc=hashc,
+    )
+    c = from_tile(c_tile, (a.shape[0], b_batch.shape[1]), grid, "C")
+    return c, grid.pmax_all(ovf).to(torch.int32)
 
 
 def summa3d_fused_step(
@@ -230,6 +348,7 @@ def summa3d_fused_step(
     sel_cap: int,
     caps: BatchCaps,
     semiring: sr.Semiring = sr.PLUS_TIMES,
+    sorted_merge: bool = True,
     path: str = "sparse",
     kbin: BinnedCaps = None,
     hashc: HashCaps = None,
@@ -252,7 +371,7 @@ def summa3d_fused_step(
     slice (``mask_cap`` entries, exact from the symbolic mask counts) and
     gathers the l layer pieces along the fiber, layer t's at D columns
     [t·wbl, (t+1)·wbl); the local multiply then keeps C ⊙ M, or C ⊙ ¬M with
-    ``mask_complement``.
+    ``mask_complement``. ``sorted_merge`` is ``summa3d_sparse_step``'s.
     """
     tm_a = a.tile_shape[0]
     tn_full = b_full.tile_shape[1]
@@ -297,7 +416,7 @@ def summa3d_fused_step(
         ovf = torch.stack([ovf_sel, ovf_mask])
         return c_tile.reshape(1, 1, 1, *c_tile.shape), ovf
     c_tile, ovf_mul = _sparse_tile_body(
-        a_loc, sel, grid, caps, semiring,
+        a_loc, sel, grid, caps, semiring, sorted_merge,
         kbin=kbin, bin_of_k=bin_of_k, hashc=hashc,
         mask=mask_cat, mask_complement=mask_complement,
     )

@@ -6,6 +6,8 @@ Host-side numpy math over count vectors:
     mem(C) and aggregate memory M.
   * ``batch_count`` — Alg. 3 line 12: b from the *max per-process* unmerged
     nnz (robust to load imbalance; may exceed the lower bound).
+  * ``SymbolicResult`` — the symbolic step's outcome as python ints, with
+    the per-batch unmerged capacity it implies.
   * ``plan_k_bins`` — bin boundaries for the k-binned paired multiply.
   * ``host_symbolic_counts`` — the symbolic pass computed from host COO for
     any candidate grid shape (the device pass is ``batched.symbolic3d_counts``).
@@ -66,6 +68,14 @@ def _host_triplets(a):
     )
 
 
+def _count(shape, *idx) -> np.ndarray:
+    """An int64 array of ``shape`` counting the index tuples ``idx`` (what
+    ``np.add.at(zeros, idx, 1)`` makes), as one ``bincount``."""
+    size = int(np.prod(shape))
+    flat = np.ravel_multi_index(idx, shape) if len(idx[0]) else np.zeros(0, np.int64)
+    return np.bincount(flat, minlength=size).astype(np.int64).reshape(shape)
+
+
 def host_tile_counts(a, grid_shape, kind: str) -> np.ndarray:
     """Per-tile nnz of ``a`` laid out as ``kind`` on a candidate grid shape
     — pure host math. Returns (pr, pc, l)."""
@@ -111,8 +121,7 @@ def host_symbolic_counts(a, b, grid_shape, mask=None) -> SymbolicCounts:
     a_i = ar // (m_a // pr)
     a_k = (ac % w_a) // wl_a
     a_q = (ac // w_a) * wl_a + (ac % wl_a)
-    acc = np.zeros((pr, l, k_tot), np.int64)
-    np.add.at(acc, (a_i, a_k, a_q), 1)
+    acc = _count((pr, l, k_tot), a_i, a_k, a_q)
 
     # B: tile coordinates + stage coordinate k_idx = s*wl + local row
     br, bc = _host_triplets(b)
@@ -124,10 +133,8 @@ def host_symbolic_counts(a, b, grid_shape, mask=None) -> SymbolicCounts:
     b_lc = bc % tn_b
     b_q = b_s * wl_b + b_lr
 
-    bcc = np.zeros((pr, pc, l, tn_b), np.int64)
-    np.add.at(bcc, (b_s, b_j, b_k, b_lc), 1)
-    bkc = np.zeros((pc, l, k_tot), np.int64)
-    np.add.at(bkc, (b_j, b_k, b_q), 1)
+    bcc = _count((pr, pc, l, tn_b), b_s, b_j, b_k, b_lc)
+    bkc = _count((pc, l, k_tot), b_j, b_k, b_q)
 
     # percol[i, j, k, c] = Σ over B entries of (grid col j, layer k, local
     # col c): A's stage-k_idx count in row block i
@@ -144,11 +151,28 @@ def host_symbolic_counts(a, b, grid_shape, mask=None) -> SymbolicCounts:
         assert mask.shape == (m_a, n_b), (mask.shape, a.shape, b.shape)
         w_c, wl_c = n_b // pc, n_b // pc // l
         mr, mc = _host_triplets(mask)
-        mcc = np.zeros((pr, pc, l, wl_c), np.int64)
-        np.add.at(mcc, (mr // (m_a // pr), mc // w_c, (mc % w_c) // wl_c, mc % wl_c), 1)
+        mcc = _count((pr, pc, l, wl_c), mr // (m_a // pr), mc // w_c, (mc % w_c) // wl_c,
+                     mc % wl_c)
     return SymbolicCounts(
         percol=percol, b_colcounts=bcc, a_kcounts=acc, b_kcounts=bkc, mask_colcounts=mcc,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class SymbolicResult:
+    """Host-side outcome of the symbolic step (all python ints)."""
+
+    num_batches: int
+    max_unmerged_nnz: int  # max over processes of unmerged output nnz (b=1)
+    max_nnz_a: int
+    max_nnz_b: int
+    flops: int  # total multiply count (2*flops = FLOPs)
+    lower_bound: int  # Eq. (2)
+
+    def per_batch_capacity(self, slack: float = 1.25) -> int:
+        """Static per-process unmerged capacity to allocate for one batch."""
+        cap = int(math.ceil(self.max_unmerged_nnz / max(self.num_batches, 1) * slack))
+        return max(cap, 8)
 
 
 def batch_count_lower_bound(
@@ -253,9 +277,15 @@ def plan_k_bins(
     k_dim = a_cnt.shape[0]
     assert b_cnt.shape[0] == k_dim, (a_cnt.shape, b_cnt.shape)
 
+    # every candidate map is monotone in k, so a bin's count is a
+    # difference of prefix sums between its first and its last k
+    pre_a = np.concatenate([[0], np.cumsum(a_cnt)])
+    pre_b = np.concatenate([[0], np.cumsum(b_cnt)])
+
     def score(bin_of_k, g):
-        binned_a = np.bincount(bin_of_k, weights=a_cnt, minlength=g)
-        binned_b = np.bincount(bin_of_k, weights=b_cnt, minlength=g)
+        edges = np.searchsorted(bin_of_k, np.arange(g + 1))
+        binned_a = pre_a[edges[1:]] - pre_a[edges[:-1]]
+        binned_b = pre_b[edges[1:]] - pre_b[edges[:-1]]
         ca = rup8(max(int(int(binned_a.max()) * slack), 8))
         cb = rup8(max(int(int(binned_b.max()) * slack), 8))
         return g * ca * cb, ca, cb

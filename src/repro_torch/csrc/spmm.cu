@@ -6,7 +6,12 @@
 // summed in f32; B is f32 or bf16 (one template parameter). The wrapper has
 // already ordered A's entries by row (a stable sort, so slot order is kept
 // within a row) and built row pointers; entries whose row or column is a
-// sentinel sort past the last row pointer and are never read.
+// sentinel sort past the last row pointer and are never read. In the
+// accumulate mode the kernel adds A·B to the C it is given instead
+// (C += A·B): the Cannon ring's stages sum into one tile that way, so no
+// second (m x n) tile is held for a stage's product; a row of C with no
+// entries in A is then neither read nor written, and a block whose rows
+// have none returns at once.
 //
 // What bounds it on this card: bytes. A is read once (12 bytes an entry),
 // B and C once each (k * n and m * n elements: 256 MiB each in f32 at the
@@ -37,8 +42,8 @@
 // the slab and split over the block's 16 warps in fixed contiguous slices
 // whose partials are summed in warp order, so it does not serialise one
 // warp; a row whose rest does not fit its warp's list is walked entry by
-// entry. Every element of C is written once, with no atomics on values and
-// no zero fill, and each sum runs in an order fixed by the inputs alone
+// entry. Every element of C (in the accumulate mode, of a row with entries)
+// is written once, with no atomics on values and no zero fill, and each sum runs in an order fixed by the inputs alone
 // (the staging ranks depend on the entries only; a block whose columns
 // overflow the table stages none), so two calls give the same bits. The
 // kernel allocates nothing, launches on the caller's stream and returns
@@ -230,17 +235,23 @@ __device__ __forceinline__ void list_sum(const int2* list, int q0, int q1,
   for (; q < q1; ++q) fma4(__int_as_float(list[q].y), b_quad(b, list[q].x, j, n, vec), acc);
 }
 
+// Write q to C[r, j..j+3], or add it to what C holds there (accumulate).
 __device__ __forceinline__ void store_quad(float* __restrict__ out, int r, int j, int n,
-                                           bool vec, float4 q) {
+                                           bool vec, bool accumulate, float4 q) {
   float* row = out + static_cast<size_t>(r) * n;
   if (vec && j + 3 < n) {
-    *reinterpret_cast<float4*>(row + j) = q;
+    float4* dst = reinterpret_cast<float4*>(row + j);
+    if (accumulate) {
+      const float4 c = *dst;
+      q = make_float4(c.x + q.x, c.y + q.y, c.z + q.z, c.w + q.w);
+    }
+    *dst = q;
     return;
   }
-  if (j < n) row[j] = q.x;
-  if (j + 1 < n) row[j + 1] = q.y;
-  if (j + 2 < n) row[j + 2] = q.z;
-  if (j + 3 < n) row[j + 3] = q.w;
+  if (j < n) row[j] = accumulate ? row[j] + q.x : q.x;
+  if (j + 1 < n) row[j + 1] = accumulate ? row[j + 1] + q.y : q.y;
+  if (j + 2 < n) row[j + 2] = accumulate ? row[j + 2] + q.z : q.z;
+  if (j + 3 < n) row[j + 3] = accumulate ? row[j + 3] + q.w : q.w;
 }
 
 // Once per block: stage the columns its rows use twice or more, ranked by
@@ -332,7 +343,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 spmm_tile_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
                  const float* __restrict__ vals, const T* __restrict__ b, int m, int n,
-                 bool vec, float* __restrict__ out) {
+                 bool vec, bool accumulate, float* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
   const int tid = threadIdx.x;
@@ -352,6 +363,7 @@ spmm_tile_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
   }
   if (tid <= rows) s.rowptr[tid] = rowptr[r0 + tid];
   __syncthreads();
+  if (accumulate && s.rowptr[0] == s.rowptr[rows]) return;  // C += 0 on every row
   if (tid < rows && s.rowptr[tid + 1] - s.rowptr[tid] > kLong) {
     atomicOr(&s.long_rows, 1ull << tid);
   }
@@ -392,13 +404,15 @@ spmm_tile_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
 #pragma unroll
     for (int g = 0; g < kRowsPerWarp; ++g) {
       const int i = warp * kRowsPerWarp + g;
-      if (i < rows && !((s.long_rows >> i) & 1ull)) {
+      // in the accumulate mode a row with no entries keeps its C untouched
+      if (i < rows && !((s.long_rows >> i) & 1ull) &&
+          !(accumulate && s.rowptr[i] == s.rowptr[i + 1])) {
         if (s.rest_end[i] >= 0) {
           list_sum(s.rest[warp], s.rest_beg[i], s.rest_end[i], b, j, n, vec, acc[g]);
         } else {
           row_sum<false>(s, cols, vals, b, s.rowptr[i], s.rowptr[i + 1], j, jl, n, vec, acc[g]);
         }
-        store_quad(out, r0 + i, j, n, vec, acc[g]);
+        store_quad(out, r0 + i, j, n, vec, accumulate, acc[g]);
       }
     }
     // long rows: contiguous slices per warp, partials summed in warp order
@@ -420,7 +434,7 @@ spmm_tile_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
           sum.z += p.z;
           sum.w += p.w;
         }
-        store_quad(out, r0 + i, j, n, vec, sum);
+        store_quad(out, r0 + i, j, n, vec, accumulate, sum);
       }
       __syncthreads();
     }
@@ -430,7 +444,7 @@ spmm_tile_kernel(const int* __restrict__ rowptr, const int* __restrict__ cols,
 
 template <typename T>
 int launch(const int* rowptr, const int* cols, const float* vals, const T* b, int m, int n,
-           int vec, float* out, cudaStream_t stream) {
+           int vec, int accumulate, float* out, cudaStream_t stream) {
   const int tiles = (n + kCols - 1) / kCols;
   const dim3 grid((m + kRows - 1) / kRows, (tiles + kTilesPerBlock - 1) / kTilesPerBlock);
   if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
@@ -439,7 +453,7 @@ int launch(const int* rowptr, const int* cols, const float* vals, const T* b, in
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_tile_kernel<T><<<grid, kThreads, smem, stream>>>(rowptr, cols, vals, b, m, n, vec != 0,
-                                                        out);
+                                                        accumulate != 0, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -447,16 +461,20 @@ int launch(const int* rowptr, const int* cols, const float* vals, const T* b, in
 
 // b_dtype: 0 = float32, 1 = bfloat16. vec: B's rows and C's rows are
 // 16-byte (f32) or 8-byte (bf16) aligned for 4-column accesses.
+// accumulate: 0 writes C = A·B; 1 adds A·B to the C it is given (each
+// element of a row with entries read and written once, by the thread that
+// sums it; the other rows are not touched).
 extern "C" int spmm_launch(const int* rowptr, const int* cols, const float* vals,
-                           const void* b, int b_dtype, int m, int n, int vec, float* out,
-                           cudaStream_t stream) {
+                           const void* b, int b_dtype, int m, int n, int vec, int accumulate,
+                           float* out, cudaStream_t stream) {
   if (m <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b_dtype == 0) {
-    return launch(rowptr, cols, vals, static_cast<const float*>(b), m, n, vec, out, stream);
+    return launch(rowptr, cols, vals, static_cast<const float*>(b), m, n, vec, accumulate, out,
+                  stream);
   }
   if (b_dtype == 1) {
-    return launch(rowptr, cols, vals, static_cast<const __nv_bfloat16*>(b), m, n, vec, out,
-                  stream);
+    return launch(rowptr, cols, vals, static_cast<const __nv_bfloat16*>(b), m, n, vec,
+                  accumulate, out, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

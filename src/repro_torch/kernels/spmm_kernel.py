@@ -17,6 +17,10 @@ kernel's.
     ``index_add_`` into C's rows, in float32.
   * ``spmm`` — the kernel for CUDA tensors, the plain version for CPU
     tensors.
+
+Given ``out`` (an f32 (m, n) tile), each of them returns ``out`` with A·B
+added to it in place (the kernel's accumulate mode): the Cannon ring's
+stages sum into one tile that way, with no second tile for a stage.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ from . import _build
 
 Tensor = torch.Tensor
 
-# spmm_launch(rowptr, cols, vals, b, b_dtype, m, n, vec, out, stream)
-_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+# spmm_launch(rowptr, cols, vals, b, b_dtype, m, n, vec, accumulate, out, stream)
+_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 #: B's dtypes the kernel reads, by the code its entry point takes
 _B_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,12 +54,22 @@ def _live(rows: Tensor, cols: Tensor, m: int, k: int) -> Tensor:
     return (rows >= 0) & (rows < m) & (cols >= 0) & (cols < k)
 
 
+def _check_out(out, m: int, n: int, dev) -> None:
+    if out is not None and (out.shape != (m, n) or out.dtype != torch.float32
+                            or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 ({m}, {n}) tile on {dev}")
+
+
 def spmm_ref(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int,
-             chunk: int = 1 << 16) -> Tensor:
+             chunk: int = 1 << 16, out: Tensor = None) -> Tensor:
     """Plain PyTorch version: dense f32 C (m, n), summed in f32, A's entries
-    taken ``chunk`` at a time so the (entries, n) products stay small."""
+    taken ``chunk`` at a time so the (entries, n) products stay small; with
+    ``out``, that C is added to ``out``, which is returned."""
     _check(rows, cols, vals, b)
     k, n = b.shape
+    _check_out(out, m, n, b.device)
+    if out is not None:
+        return out.add_(spmm_ref(rows, cols, vals, b, m, chunk))
     live = _live(rows, cols, m, k)
     seg = torch.where(live, rows, torch.full_like(rows, m)).long()
     src = torch.where(live, cols, torch.zeros_like(cols)).long()
@@ -66,9 +80,10 @@ def spmm_ref(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int,
     return out[:m]
 
 
-def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Tensor:
+def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int,
+              out: Tensor = None) -> Tensor:
     """Order A's entries by row, build row pointers, and launch the Hopper
-    kernel on the current stream."""
+    kernel on the current stream (in its accumulate mode with ``out``)."""
     _check(rows, cols, vals, b)
     dev = b.device
     if dev.type != "cuda" or any(t.device != dev for t in (rows, cols, vals)):
@@ -76,6 +91,8 @@ def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Te
     if not b.is_contiguous():
         raise ValueError("spmm_cuda needs a contiguous B")
     k, n = b.shape
+    _check_out(out, m, n, dev)
+    accumulate = out is not None
     seg = torch.where(_live(rows, cols, m, k), rows, torch.full_like(rows, m))
     seg_sorted, perm = torch.sort(seg, stable=True)
     cols_s = cols[perm].contiguous()
@@ -83,7 +100,8 @@ def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Te
     rowptr = torch.searchsorted(
         seg_sorted, torch.arange(m + 1, dtype=torch.int32, device=dev), out_int32=True
     )
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return out
     # 4-column vector accesses need B's rows 16-byte (f32) or 8-byte (bf16) aligned
@@ -91,7 +109,7 @@ def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Te
     fn = _build.entry("spmm", "spmm_launch", _LAUNCH_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(rowptr.data_ptr(), cols_s.data_ptr(), vals_s.data_ptr(), b.data_ptr(),
-                 _B_DTYPES[b.dtype], m, n, int(vec), out.data_ptr(),
+                 _B_DTYPES[b.dtype], m, n, int(vec), int(accumulate), out.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spmm_cuda")
     spmm_cuda.launches += 1
@@ -101,9 +119,11 @@ def spmm_cuda(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Te
 spmm_cuda.launches = 0
 
 
-def spmm(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int) -> Tensor:
+def spmm(rows: Tensor, cols: Tensor, vals: Tensor, b: Tensor, m: int,
+         out: Tensor = None) -> Tensor:
     """C (m×n, f32) = A·B for A's padded COO (rows, cols, vals) and dense B
-    (float32 or bfloat16): the Hopper kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    fn = spmm_cuda if b.is_cuda else spmm_ref
-    return fn(rows, cols, vals, b, m)
+    (float32 or bfloat16), or ``out`` += A·B: the Hopper kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if b.is_cuda:
+        return spmm_cuda(rows, cols, vals, b, m, out=out)
+    return spmm_ref(rows, cols, vals, b, m, out=out)

@@ -163,6 +163,39 @@ def test_spmm_cuda_matches_plain(cuda_device, case, dtype):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
+@pytest.mark.parametrize("case", ["ragged", "odd_n", "empty_rows", "long_row"])
+def test_spmm_cuda_accumulates_into_out(cuda_device, case):
+    """The accumulate mode (the Cannon ring's stages after the first): C
+    += A·B into the ``out`` it is given, one launch, within rtol 1e-5 of
+    the plain version's ``out + A·B``, the same bits from two calls."""
+    m, k, n = 700, 900, 301 if case == "odd_n" else 600
+    rows, cols, vals = coo_entries(seed=46, m=m, n=k, cap=30000, nnz=25000)
+    rng = np.random.default_rng(47)
+    if case == "empty_rows":
+        rows[:25000] = rng.choice(np.arange(0, m, 3), 25000)
+    elif case == "long_row":
+        rows[:10000] = 5
+    args = [torch.as_tensor(x, device=cuda_device) for x in (rows, cols, vals)]
+    b = torch.as_tensor(rng.uniform(0, 1, (k, n)).astype(np.float32), device=cuda_device)
+    args[2] = args[2].abs()  # nonnegative terms: the sums' order moves only rounding
+    c0 = torch.as_tensor(rng.uniform(0, 1, (m, n)).astype(np.float32), device=cuda_device)
+    out = c0.clone()
+    before = spmm_cuda.launches
+    got = spmm_cuda(*args, b, m, out=out)
+    assert got.data_ptr() == out.data_ptr() and spmm_cuda.launches == before + 1
+    again = spmm_cuda(*args, b, m, out=c0.clone())
+    want = spmm_ref(*args, b, m, out=c0.clone())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    # rows with no entries are left as they were, bit for bit (padding's row is m)
+    idle = torch.ones(m + 1, dtype=torch.bool, device=cuda_device)
+    idle[args[0].long()] = False
+    idle = idle[:m]
+    assert torch.equal(got[idle].view(torch.int32), c0[idle].view(torch.int32))
+    with pytest.raises(ValueError, match="out must be"):
+        spmm_cuda(*args, b, m, out=c0[:, 1:])
+
+
 def test_densify_cuda_matches_plain(cuda_device):
     m, n = 500, 700
     rows, cols, vals = coo_entries(seed=43, m=m, n=n, cap=40000, nnz=35000)
@@ -622,3 +655,55 @@ def test_four_gloo_ranks_on_one_card_match_scipy(cuda_device, tmp_path, shape):
     got = sps.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
     assert got.nnz == len(rows) == want.nnz  # each entry once, on one rank
     np.testing.assert_allclose(got[want.row, want.col].A1, want.data, rtol=1e-4)
+
+
+def _gloo_dense_rank(grid, n):
+    """One rank of the dense step on one card over gloo: its C tile under
+    both schedules, launches of densify and SpMM per schedule, and a
+    ``Grid.ppermute`` of a CUDA tensor along each axis."""
+    from repro_torch.core import gen
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.grid import COL_AX, ROW_AX
+    from repro_torch.core.summa3d import summa3d_dense_step
+
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device=grid.device)
+    A, B = scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B")
+    out = {}
+    for schedule in ("allgather", "ring"):
+        before = (densify_cuda.launches, spmm_cuda.launches)
+        c = summa3d_dense_step(A, B, grid, schedule=schedule)
+        out[schedule] = (c.cpu().numpy(), densify_cuda.launches - before[0],
+                         spmm_cuda.launches - before[1], c.device.type)
+    x = torch.full((5,), float(grid.rank), device=grid.device)
+    out["shift"] = [grid.ppermute(x, ax, 1).cpu().numpy() for ax in (ROW_AX, COL_AX)]
+    return grid.coords, out
+
+
+def test_dense_step_schedules_on_four_gloo_ranks_of_one_card(cuda_device, tmp_path):
+    """2x2x1 over gloo with CUDA tensors: the Cannon ring's shifts
+    (``Grid.ppermute``) run on the card; its tiles equal allgather's within
+    rtol 1e-5 and scipy's product; the ring launches densify and SpMM
+    twice (pc stages), allgather once."""
+    import scipy.sparse as sps
+
+    from repro_torch.core import gen
+    from repro_torch.launch import spawn
+
+    n = 2048
+    ranks = spawn.run(_gloo_dense_rank, (2, 2, 1), backend="gloo", device="cuda", args=(n,),
+                      timeout_s=300, workdir=tmp_path)
+    a = gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=0, device="cpu")
+    nnz = int(a.nnz)
+    x = sps.csr_matrix((a.vals[:nnz].numpy(), (a.rows[:nnz].numpy(), a.cols[:nnz].numpy())),
+                       shape=(n, n))
+    want = (x @ x).toarray()
+    h = n // 2
+    for (i, j, _), out in ranks:
+        ag, ring = out["allgather"], out["ring"]
+        assert ag[1:] == (1, 1, "cuda") and ring[1:] == (2, 2, "cuda")
+        np.testing.assert_allclose(ring[0], ag[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(ring[0][0, 0, 0], want[i * h:(i + 1) * h, j * h:(j + 1) * h],
+                                   rtol=1e-4, atol=1e-5)
+        # rank (i, j) gets the tile of (i + 1, j) along the rows, (i, j + 1) along the columns
+        np.testing.assert_array_equal(out["shift"][0], np.full(5, (i + 1) % 2 * 2 + j))
+        np.testing.assert_array_equal(out["shift"][1], np.full(5, i * 2 + (j + 1) % 2))

@@ -19,6 +19,7 @@ pytestmark = pytest.mark.slow
 SHAPES = [(2, 2, 1), (1, 1, 4)]
 AXES = (ROW_AX, COL_AX, LAYER_AX)
 TIMEOUT_S = 120
+PP_SHIFTS = (0, 1, -1, 2)
 
 
 def _inputs(rank):
@@ -53,6 +54,14 @@ def _collectives(grid):
             "pmax_i": grid.pmax(x["i"], ax).numpy(),
             "psum_scatter": grid.psum_scatter(x["m"], ax, dim=1).numpy(),
         }
+    out["ppermute"] = {ax: {sh: grid.ppermute(x["f"], ax, sh).numpy() for sh in PP_SHIFTS}
+                       for ax in AXES}
+    out["ppermute_block"] = grid.ppermute(x["m"], ROW_AX, 1).numpy()
+    # the Cannon skew: each grid row shifts along the columns by its own
+    # row index, each grid column along the rows by its column index
+    i, j, _ = grid.coords
+    out["skew_A"] = grid.ppermute(x["i"], COL_AX, i).numpy()
+    out["skew_B"] = grid.ppermute(x["i"], ROW_AX, j).numpy()
     out["gather_grid"] = grid.gather_grid(x["i"]).numpy()
     out["psum_all_f"] = grid.psum_all(x["f"]).numpy()
     out["psum_all_i"] = grid.psum_all(x["i"]).numpy()
@@ -131,6 +140,33 @@ def test_axis_collectives_match_numpy(ranks, ax):
         w = 8 // n
         full = _sum_in_order([v["m"] for v in x])
         assert res["psum_scatter"].tobytes() == full[:, me * w:(me + 1) * w].tobytes()
+
+
+@pytest.mark.parametrize("ax", AXES)
+def test_ppermute_matches_numpy(ranks, ax):
+    """The process at axis index s gets what index (s + shift) mod size
+    sent; shift 0 (and any multiple of the size) is the identity."""
+    shape, got = ranks
+    for r, g in enumerate(got):
+        members = _members(r, shape, ax)
+        me, n = members.index(r), len(members)
+        for sh in PP_SHIFTS:
+            np.testing.assert_array_equal(
+                g["ppermute"][ax][sh], _inputs(members[(me + sh) % n])["f"], err_msg=f"{sh}")
+        if ax == ROW_AX:
+            np.testing.assert_array_equal(g["ppermute_block"],
+                                          _inputs(members[(me + 1) % n])["m"])
+
+
+def test_ppermute_skew_matches_numpy(ranks):
+    """Per-line shifts: new[i, j] = old[i, (j + i) mod pc] along the columns
+    and new[i, j] = old[(i + j) mod pr, j] along the rows."""
+    shape, got = ranks
+    pr, pc, l = shape
+    for r, g in enumerate(got):
+        i, j, k = _coords(r, shape)
+        np.testing.assert_array_equal(g["skew_A"], _inputs((i * pc + (j + i) % pc) * l + k)["i"])
+        np.testing.assert_array_equal(g["skew_B"], _inputs((((i + j) % pr) * pc + j) * l + k)["i"])
 
 
 def test_world_collectives_match_numpy(ranks):

@@ -14,8 +14,13 @@ sparse and dense MCL device loops; the masked multiply (paper §V-B) at b ∈
 batch's mask slice is gathered along the fiber with per-layer column
 offsets; and the masked triangle count (its plan and its count) and the
 overlap pairs, without and with a candidate mask, on every shape, 2×2×2
-included. Each rank's tile is held against the reference's
-tile at the rank's grid point.
+included; the SUMMA3D steps outside the fused step: ``summa3d_dense_step``
+under both schedules (the Cannon ring's skew and unit shifts are
+``Grid.ppermute``) on every shape, 2×2×2 included, and
+``summa3d_sparse_step`` (ESC, and OR_AND on 0/1 values) on 2×2×1 and
+1×1×4; and ``multiply_placed`` with the degree placement on 2×2×1. Each
+rank's tile is held against the reference's tile at the rank's grid point
+(``multiply_placed`` returns the whole product on every rank).
 
 Tolerances (the port's parity rules): structure, padding and min/max values
 exact; plus_times values within rtol 1e-5 / atol 1e-6 (sums in another
@@ -24,9 +29,10 @@ the reference's field by field; retries and the run report equal, so an
 overflow is seen exactly when the reference sees one; MCL nnz trajectories
 identical and chaos within rtol 1e-4 / atol 1e-5, as in test_torch_mcl.py.
 
-The JAX side runs once for the module in a subprocess with 8 host devices:
+The JAX side runs once for the module, one subprocess a shape, all started
+together, each with 8 host devices:
 
-    python tests/test_torch_grid_parity.py --reference INPUTS.npz OUT.npz
+    python tests/test_torch_grid_parity.py --reference INPUTS.npz OUT.npz 2x2x1
 
 which imports JAX only in that branch. The port's ranks are this file's
 module-level functions, and its top imports no JAX, so spawned ranks never
@@ -37,6 +43,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -62,11 +69,17 @@ PRODUCTS = {
 # MCL loops on 2x2x1: name -> (path, forced batches, top-k)
 MCL_LOOPS = {"sparse_b4_k64": ("sparse", 4, 64), "sparse_b4_k4": ("sparse", 4, 4),
              "dense_b4_k64": ("dense", 4, 64)}
+# the steps outside the fused step: the dense step's schedules and the
+# sparse step's semirings (its capacities are the one-batch ESC plan's)
+SCHEDULES = ("allgather", "ring")
+STEP_SEMIRINGS = ("plus_times", "or_and")
 # the masked sweep: (complement, forced batches, local path)
 MASKED = tuple((comp, nb, lp) for comp in (False, True) for nb in (2, 4)
                for lp in ("esc", "hash", "binned"))
 SPAWN_TIMEOUT_S = 240  # a bound for a hung rank, not a run time (~20 s a shape alone)
-REFERENCE_TIMEOUT_S = 300  # likewise (~60 s alone)
+# likewise, for the reference's subprocesses together, counted from their
+# start (~120 s for the slowest shape, 2x2x1, alone)
+REFERENCE_TIMEOUT_S = 600
 
 pytestmark = pytest.mark.slow
 
@@ -159,6 +172,27 @@ def _run(pkg, grid, shape, inp):
             out[f"roundtrip/{kind}"] = pkg.dense(pkg.gather(d))
         out["col_reduce/A/sum"] = np.asarray(pkg.col_reduce(ops["A"], grid, "sum"))
         out["col_reduce/B/max"] = np.asarray(pkg.col_reduce(ops["B"], grid, "max"))
+    for schedule in SCHEDULES:
+        out[f"dense_step/{schedule}"] = np.asarray(
+            pkg.dense_step(ops["A"], ops["B"], grid=grid, schedule=schedule))
+    if shape != ESC_SHAPE:
+        ones = pkg.coo(inp["r"], inp["c"], np.ones(len(inp["r"]), np.float32), (N, N))
+        for semiring in STEP_SEMIRINGS:
+            x = a if semiring == "plus_times" else ones
+            xa, xb = pkg.scatter(x, grid, "A"), pkg.scatter(x, grid, "B")
+            caps = pkg.plan(xa, xb, grid, 1 << 30, spec=pkg.PlanSpec(local_path="esc")).caps
+            c, ovf = pkg.sparse_step(xa, xb, grid=grid, caps=caps,
+                                     semiring=pkg.semiring(semiring))
+            for f, v in _tiles(c).items():
+                out[f"sparse_step/{semiring}/{f}"] = v
+            out[f"sparse_step/{semiring}/ovf"] = np.asarray(ovf)
+    if shape == (2, 2, 1):
+        placed = pkg.multiply_placed(a, a, grid, int(inp[f"budget/{_tag(shape)}"]),
+                                     strategy="degree", spec=pkg.PlanSpec(local_path="esc"))
+        for f in ("rows", "cols", "vals"):
+            out[f"placed/{f}"] = np.asarray(getattr(placed, f))
+        out["placed/b"] = np.array(placed.result.plan.num_batches)
+        out["placed/row_perm"] = placed.placement.row_perm
     for case in _cases(shape):
         path, local_path, semiring, slack, share = PRODUCTS[case]
         batches = []
@@ -225,7 +259,7 @@ def _run(pkg, grid, shape, inp):
 # the port's ranks (spawned; no JAX)
 # ---------------------------------------------------------------------------
 def _port_rank(grid, inp):
-    from repro_torch.core import distsparse, semiring, sparse, specs
+    from repro_torch.core import distsparse, placement, semiring, sparse, specs, summa3d
     from repro_torch.core.batched import batched_summa3d, plan_batches, probe_memory_budget
     from repro_torch.sparse_apps import graph_algorithms, mcl
 
@@ -244,6 +278,9 @@ def _port_rank(grid, inp):
         ga=graph_algorithms,
         plan=plan_batches,
         probe=probe_memory_budget,
+        dense_step=summa3d.summa3d_dense_step,
+        sparse_step=summa3d.summa3d_sparse_step,
+        multiply_placed=placement.multiply_placed,
     )
     out, plans = _run(pkg, grid, (grid.pr, grid.pc, grid.l), inp)
     loaded = sorted(m for m in ("jax", "jaxlib", "repro") if m in sys.modules)
@@ -253,8 +290,10 @@ def _port_rank(grid, inp):
 # ---------------------------------------------------------------------------
 # the JAX side (subprocess only)
 # ---------------------------------------------------------------------------
-def _reference(inputs_path, out_path):
-    from repro.core import distsparse, semiring, sparse
+def _reference(inputs_path, out_path, tag):
+    import jax
+
+    from repro.core import distsparse, placement, semiring, sparse, summa3d
     from repro.core.batched import batched_summa3d, plan_batches, probe_memory_budget
     from repro.core.grid import make_grid
     from repro.core.specs import ExecSpec, PlanSpec
@@ -274,16 +313,22 @@ def _reference(inputs_path, out_path):
         ga=graph_algorithms,
         plan=plan_batches,
         probe=probe_memory_budget,
+        # the steps under jit, as the reference's driver runs them
+        dense_step=jax.jit(summa3d.summa3d_dense_step,
+                           static_argnames=("grid", "semiring", "schedule")),
+        sparse_step=jax.jit(summa3d.summa3d_sparse_step, static_argnames=(
+            "grid", "caps", "semiring", "sorted_merge", "kbin", "hashc")),
+        multiply_placed=placement.multiply_placed,
     )
     inp = dict(np.load(inputs_path))
+    shape = tuple(int(x) for x in tag.split("x"))
     res = {}
-    for shape in SHAPES + (ESC_SHAPE,):
-        out, plans = _run(pkg, make_grid(*shape), shape, inp)
-        for key, x in out.items():
-            res[f"{_tag(shape)}/{key}"] = x
-        for case, p in plans.items():
-            for key, x in _plan_record(p).items():
-                res[f"{_tag(shape)}/{case}/plan/{key}"] = x
+    out, plans = _run(pkg, make_grid(*shape), shape, inp)
+    for key, x in out.items():
+        res[f"{tag}/{key}"] = x
+    for case, p in plans.items():
+        for key, x in _plan_record(p).items():
+            res[f"{tag}/{case}/plan/{key}"] = x
     np.savez(out_path, **res)
 
 
@@ -293,7 +338,7 @@ def _reference(inputs_path, out_path):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(inputs, reference arrays, {shape: per-rank (coords, arrays, plans)}):
-    the reference subprocess and the port's ranks run side by side."""
+    the reference's subprocesses and the port's ranks run side by side."""
     from repro_torch.launch import spawn
 
     work = tmp_path_factory.mktemp("grid_parity")
@@ -301,21 +346,32 @@ def runs(tmp_path_factory):
     np.savez(work / "inputs.npz", **inp)
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=8")
-    ref = subprocess.Popen(
-        [sys.executable, __file__, "--reference", str(work / "inputs.npz"),
-         str(work / "reference.npz")],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    tags = [_tag(shape) for shape in SHAPES + (ESC_SHAPE,)]
+    refs = {}
+    deadline = time.monotonic() + REFERENCE_TIMEOUT_S
     try:
+        for tag in tags:
+            with open(work / f"reference_{tag}.log", "w") as log:
+                refs[tag] = subprocess.Popen(
+                    [sys.executable, __file__, "--reference", str(work / "inputs.npz"),
+                     str(work / f"reference_{tag}.npz"), tag],
+                    env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         port = {shape: spawn.run(_port_rank, shape, backend="gloo", device="cpu",
                                  args=(inp,), timeout_s=SPAWN_TIMEOUT_S, workdir=work)
                 for shape in SHAPES + (ESC_SHAPE,)}
-        log, _ = ref.communicate(timeout=REFERENCE_TIMEOUT_S)
+        for ref in refs.values():
+            ref.wait(timeout=max(deadline - time.monotonic(), 1.0))
     finally:
-        if ref.poll() is None:
-            ref.kill()
-            ref.communicate()
-    assert ref.returncode == 0, log[-4000:]
-    return inp, dict(np.load(work / "reference.npz")), port
+        for ref in refs.values():
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    ref = {}
+    for tag in tags:
+        log = (work / f"reference_{tag}.log").read_text()
+        assert refs[tag].returncode == 0, f"{tag}: {log[-4000:]}"
+        ref.update(np.load(work / f"reference_{tag}.npz"))
+    return inp, ref, port
 
 
 def _ref_tile(x, coords, stacked_from=0):
@@ -426,6 +482,57 @@ def test_masked_multiply_matches_jax(runs, shape, masked):
 
 
 @pytest.mark.parametrize("shape", SHAPES + (ESC_SHAPE,), ids=_tag)
+@pytest.mark.parametrize("schedule", SCHEDULES)
+def test_dense_step_matches_jax(runs, shape, schedule):
+    """Every rank's dense C tile is the reference's, under both schedules,
+    and the ring's equals allgather's (the stages add in another order)."""
+    inp, ref, port = runs
+    want = np.zeros((N, N), np.float32)
+    want[inp["r"], inp["c"]] = inp["v"]
+    want = want @ want
+    pr, pc, l = shape
+    tm, tn = N // pr, N // pc // l
+    for coords, out, *_ in port[shape]:
+        got = out[f"dense_step/{schedule}"]
+        assert got.shape == (1, 1, 1, tm, tn)
+        np.testing.assert_allclose(got[0, 0, 0], _ref_tile(
+            ref[f"{_tag(shape)}/dense_step/{schedule}"], coords), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, out["dense_step/allgather"], rtol=1e-5, atol=1e-6)
+        i, j, k = coords
+        cols = j * (N // pc) + k * tn + np.arange(tn)  # batch_column_map at b = 1
+        np.testing.assert_allclose(got[0, 0, 0], want[i * tm:(i + 1) * tm][:, cols],
+                                   rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_tag)
+@pytest.mark.parametrize("semiring", STEP_SEMIRINGS)
+def test_sparse_step_matches_jax(runs, shape, semiring):
+    _, ref, port = runs
+    tag = f"{_tag(shape)}/sparse_step/{semiring}"
+    for coords, out, *_ in port[shape]:
+        assert int(out[f"sparse_step/{semiring}/ovf"]) == int(ref[f"{tag}/ovf"]) == 0
+        got = {f: out[f"sparse_step/{semiring}/{f}"][0, 0, 0]
+               for f in ("rows", "cols", "vals", "nnz")}
+        _assert_tiles(got, {f: _ref_tile(ref[f"{tag}/{f}"], coords) for f in got},
+                      exact_vals=semiring != "plus_times")
+
+
+def test_degree_placed_multiply_on_2x2x1_matches_jax(runs):
+    """Every rank returns the reference's placed product (the whole of it:
+    every tile is gathered), in original coordinates, under the same
+    degree permutation and batch count."""
+    _, ref, port = runs
+    tag = "2x2x1/placed"
+    assert int(ref[f"{tag}/b"]) > 1
+    for _, out, *_ in port[(2, 2, 1)]:
+        np.testing.assert_array_equal(out["placed/row_perm"], ref[f"{tag}/row_perm"])
+        assert int(out["placed/b"]) == int(ref[f"{tag}/b"])
+        np.testing.assert_array_equal(out["placed/rows"], ref[f"{tag}/rows"])
+        np.testing.assert_array_equal(out["placed/cols"], ref[f"{tag}/cols"])
+        np.testing.assert_allclose(out["placed/vals"], ref[f"{tag}/vals"], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES + (ESC_SHAPE,), ids=_tag)
 def test_triangle_count_matches_jax(runs, shape):
     """Every rank counts the reference's triangles and plans the
     reference's masked plan; the count is the dense reference's."""
@@ -475,4 +582,4 @@ def test_mcl_loop_on_2x2x1_matches_jax(runs, loop):
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--reference"]:
-    _reference(sys.argv[2], sys.argv[3])
+    _reference(sys.argv[2], sys.argv[3], sys.argv[4])
