@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-11, one card (10 and 11 run before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2, 9 and 11's grid parts, four cards
+    python3 chip_smoke.py            # phases 1-12, one card (10, 11 and 12 run before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's grid parts and 12d, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -189,13 +189,49 @@ Phases (any failed check raises, so the script exits non-zero):
           card over NCCL, when its path is ESC or hash (hash: at least the
           i32 key floor of batches), against scipy.
 
+ 12. Durability, on one card; runs after 11. Checkpoints go to a temporary
+     directory removed at the end; every run logs its checkpoint_bytes,
+     checkpoint_stall_s, restarts and refused_restores, with the kernel
+     counts set to 0 just before it and read just after.
+       a. phase 7's sparse MCL loop (n = 2^18) through
+          mcl_iterate_resilient, a checkpoint every iteration, step 2's
+          arrays.npz truncated and a preemption at batch 5 of iteration 2:
+          one restart, step 2 refused, the restore from step 1; then the
+          trajectory, the final matrix and every iteration's b, caps and
+          local path equal phase 7's device loop bit for bit, the segment
+          reduction launching on every batch; wall and peak beside 7's.
+       b. a child process runs phase 8's sparse n = 2^14 loop on its
+          default (binned) multiply through mcl_iterate_resilient, held in
+          iteration 3 by an injected 60 s straggle; once step 3 is stored it
+          is SIGKILLed, and a second child resumes from step 3 and must end
+          on phase 8's binned loop bit for bit, the binned kernel
+          launching. The children load the kernels of phase 2 (they raise
+          rather than build one).
+       c. APSP (sparse_apps.graph_algorithms) on a weighted random digraph
+          (8 out-edges a vertex, weights in [1, 10), seed 11), every run
+          under a 2 GiB budget: n = 2^11 on the hash path against scipy's
+          Dijkstra (the same reachable pairs, distances within rtol 1e-5;
+          one fused hash launch a batch), the plans apsp_iterate's "auto"
+          (the ESC budget) and the planner's own "auto" make on its
+          fixpoint, and apsp_iterate_resilient preempted at iteration 3,
+          bit-identical to the uninterrupted run; n = 2^10 on ESC (one
+          batch's min segment reduction held exactly against its plain
+          version first) and on hash, bit-identical to each other and
+          equal to scipy.
+       d. (--chips 4 only) after 9's 2x2x1 MCL loop at n = 2^18 over NCCL,
+          the same loop through mcl_iterate_resilient, preempted at batch 3
+          of iteration 2: every rank resumes from the same step and ends
+          bit-identical to 9's loop; the checkpoint holds (2, 2, 1, cap)
+          tiles (rank 0 writes).
+
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
 phase 7's profiled batch; those two rows also hold each rank's launches in
 phase 9, and the hash row the masked kernel's numbers from 10; densify,
-SpMM, hash and segment rows also hold their launches in 11, and the SpMM row
-its accumulate mode's check) and the JSON result line; with --chips 4 only
+SpMM, hash and segment rows also hold their launches in 11, the hash,
+segment and binned rows their launches in 12, and the SpMM row its
+accumulate mode's check) and the JSON result line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -204,8 +240,14 @@ result.
 from __future__ import annotations
 
 import json
+import logging
+import multiprocessing
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1205,15 +1247,17 @@ def profile_mcl_batch(a, grid, cfg):
 def mcl_sparse_phase(grid):
     """Phase 7: sparse MCL at n = 2^18, device loop vs host loop. Returns
     the segment reduction's numbers in the profiled batch (see
-    profile_mcl_batch)."""
+    profile_mcl_batch) and the first device loop (input, config, final
+    matrix, history, wall, peak and each iteration's plan) for 12a."""
     from repro_torch.sparse_apps import mcl
 
     t0 = time.perf_counter()
     a, cfg = mcl_sparse_input()
     log(f"mcl sparse: n={N_MCL}, nnz(A)={int(a.nnz)}, set-up {time.perf_counter() - t0:.1f} s")
     seg = profile_mcl_batch(a, grid, cfg)
-    fin_d, hist_d, wall_d, peak_d, _ = run_mcl(
-        mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop")
+    with PlanLog(mcl) as plans:
+        fin_d, hist_d, wall_d, peak_d, _ = run_mcl(
+            mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop")
     fin_2, hist_2, wall_2, _, _ = run_mcl(
         mcl.mcl_iterate, a, grid, cfg, "mcl sparse n=2^18, device loop, second run")
     log(f"mcl sparse n=2^18: device loop trajectories {[h['nnz'] for h in hist_d]} and "
@@ -1233,7 +1277,8 @@ def mcl_sparse_phase(grid):
         f"bytes/iter {host_bytes}; host loop {wall_h:.2f} s, peak {peak_h / 2**30:.3f} GiB, "
         f"host bytes/iter {[h['host_bytes'] for h in hist_h]}; final: <= {most} per column, "
         f"column sums within {dev:.3g} of 1")
-    return seg
+    return seg, {"a": a, "cfg": cfg, "final": fin_d, "hist": hist_d, "wall": wall_d,
+                 "peak": peak_d, "plans": plans.plans}
 
 
 def mcl_dense_input():
@@ -1250,7 +1295,8 @@ def mcl_dense_input():
 
 def mcl_dense_phase(grid, a, cfg):
     """Phase 8: dense MCL at n = 2^14 vs the sparse device loop and the host
-    loop; returns the launch counts of the dense run."""
+    loop; returns the launch counts of the dense run and the sparse loop on
+    its default (binned) multiply as (final, history), 12b's reference."""
     import dataclasses
 
     from repro_torch.sparse_apps import mcl
@@ -1282,7 +1328,7 @@ def mcl_dense_phase(grid, a, cfg):
     ported = ("col_topk_bounds", "spmm", "densify")
     if not all(launches[name] > 0 for name in ported):
         raise AssertionError(f"mcl dense: a dense-path kernel did not launch: {launches}")
-    return launches
+    return launches, (fin_s, hist_s)
 
 
 def dense_batch0(a, grid, cfg):
@@ -2031,7 +2077,7 @@ def run_grid_multiply(A, B, grid, budget, local_path, profile):
     return res, wall, np.diff([t0] + stamps), parts, nccl_share(prof) if profile else None
 
 
-def grid_rank(grid, n, budget, with_mcl, tri_scale, p11):
+def grid_rank(grid, n, budget, with_mcl, tri_scale, p11, ckpt_dir=None):
     """One rank of the distributed phase (spawned, one process per grid
     point). On each of GRID_SHAPES (the launcher's grid, then the others
     built in the same process group): this rank's tile of C = A·A on the
@@ -2044,9 +2090,11 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale, p11):
     1x1x1 grid of its own card. Rank 0 profiles the second ESC
     run. With ``with_mcl``, then the sparse n = 2^18 MCL device loop on
     the launcher's grid, which rank 0 first runs on a 1x1x1 grid of its
-    own card and holds the grid's loop against. Then phase 11's parts on
-    the grid (``phase11_rank``). Returns per shape and run the pickled
-    plan, b, wall, per-batch walls, launches and checks."""
+    own card and holds the grid's loop against, and then 12d: the same
+    loop through ``mcl_iterate_resilient`` into ``ckpt_dir``, preempted
+    mid-iteration (``resilient_grid_rank``). Then phase 11's parts on the
+    grid (``phase11_rank``). Returns per shape and run the pickled plan, b,
+    wall, per-batch walls, launches and checks."""
     import pickle
 
     import torch
@@ -2128,6 +2176,9 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale, p11):
             check_mcl_matrix(fin, cfg.max_per_col)
             out["mcl"].update(one_card_wall=one[2], one_card_batches=[
                 h["batches"] for h in one[1]])
+        del one
+        out["mcl_resilient"] = resilient_grid_rank(grid, a, cfg, (fin, hist, wall, peak),
+                                                   ckpt_dir)
     out["p11"] = phase11_rank(grid, p11, tri)
     return out
 
@@ -2149,9 +2200,14 @@ def grid_phase(n, backend, with_mcl, tri_scale, p11):
     workdir = Path(__file__).resolve().parent / "build"
     workdir.mkdir(exist_ok=True)
     budget = GRID_BUDGET * n // N_GRID
-    ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
-                      args=(n, budget, with_mcl, tri_scale, p11), timeout_s=GRID_TIMEOUT_S,
-                      workdir=workdir)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_12d_") if with_mcl else None
+    try:
+        ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
+                          args=(n, budget, with_mcl, tri_scale, p11, ckpt_dir),
+                          timeout_s=GRID_TIMEOUT_S, workdir=workdir)
+    finally:
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
     launches = {}
     want = ranks[0]["tri_one_card"]
     for shape in GRID_SHAPES:
@@ -2206,6 +2262,7 @@ def grid_phase(n, backend, with_mcl, tri_scale, p11):
                 f"nnz {m['nnz']}, b {m['batches']}, launches {m['launches']}"
                 + (f"; one card: wall {m['one_card_wall']:.2f} s, b {m['one_card_batches']}"
                    if "one_card_wall" in m else ""))
+        check_resilient_grid([x["mcl_resilient"] for x in ranks], backend)
     dense_launches = log_phase11_ranks(ranks, backend)
     log(f"phase 9 ({backend}, n={n}): {time.perf_counter() - t0:.1f} s")
     return launches, dense_launches
@@ -2784,6 +2841,482 @@ def log_phase11_ranks(ranks, backend):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: durability — the checkpoint store, the resilient loops, APSP
+# ---------------------------------------------------------------------------
+class PlanLog:
+    """Notes (b, caps, local path) of every ``batched_summa3d`` call that
+    ``module`` makes and that returns (a preempted call raises first)."""
+
+    def __init__(self, module):
+        self.module, self.plans = module, []
+
+    def __enter__(self):
+        import dataclasses
+
+        real = self._real = self.module.batched_summa3d
+
+        def wrapped(*args, **kw):
+            res = real(*args, **kw)
+            self.plans.append((res.plan.num_batches, dataclasses.astuple(res.plan.caps),
+                               res.local_path))
+            return res
+
+        self.module.batched_summa3d = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.module.batched_summa3d = self._real
+
+
+class RestoreLog(logging.Handler):
+    """Notes the iteration of every restore the resilient loop logs."""
+
+    def __init__(self):
+        super().__init__()
+        self.steps = []
+
+    def emit(self, record):
+        if record.getMessage().startswith("restored checkpoint at iteration"):
+            self.steps.append(int(record.args[0]))
+
+    def __enter__(self):
+        logger = logging.getLogger("repro_torch.runtime.resilient")
+        logger.addHandler(self)
+        logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        logging.getLogger("repro_torch.runtime.resilient").removeHandler(self)
+
+
+def durability(rep) -> str:
+    return (f"restarts {rep.restarts}, refused_restores {rep.refused_restores}, "
+            f"checkpoint_bytes {rep.checkpoint_bytes}, checkpoint_stall_s "
+            f"{rep.checkpoint_stall_s:.4f} ({rep.checkpoint_stalls} stalls), straggler_events "
+            f"{rep.straggler_events}")
+
+
+def run_resilient_mcl(a, grid, cfg, ckpt_dir, injector, label):
+    """``mcl_iterate_resilient`` through ``run_mcl`` (counts set to 0 just
+    before, wall, peak); returns (final, history, wall, peak, launches,
+    report, restored-from steps)."""
+    from repro_torch.runtime.resilient import ResilientConfig
+    from repro_torch.sparse_apps import mcl
+
+    report = {}
+
+    def resilient(a_, g, c):
+        final, hist, report["rep"] = mcl.mcl_iterate_resilient(
+            a_, g, c, ResilientConfig(ckpt_dir=ckpt_dir, ckpt_every=1), injector=injector)
+        return final, hist
+
+    with RestoreLog() as restores:
+        final, hist, wall, peak, launches = run_mcl(resilient, a, grid, cfg, label)
+    log(f"{label}: {durability(report['rep'])}, resumed from {restores.steps}")
+    return final, hist, wall, peak, launches, report["rep"], restores.steps
+
+
+def phase12a(grid, ref, root):
+    """12a: phase 7's sparse MCL at n = 2^18 through mcl_iterate_resilient,
+    step 2's arrays truncated and a preemption at batch 5 of iteration 2:
+    one restart, the refused step 2, a restore from step 1, and then the
+    device loop's trajectory, final matrix and plans bit for bit."""
+    from repro_torch.runtime.resilient import SpgemmFailureInjector
+    from repro_torch.sparse_apps import mcl
+
+    inj = SpgemmFailureInjector(preempt_iters=(2,), preempt_batch=5, corrupt_steps=(2,))
+    with PlanLog(mcl) as plans:
+        final, hist, wall, peak, launches, rep, restored = run_resilient_mcl(
+            ref["a"], grid, ref["cfg"], os.path.join(root, "12a"), inj,
+            "12a mcl sparse n=2^18, resilient")
+    want = ref["plans"][0:2] + ref["plans"][1:4]  # iteration 2 abandoned, 1 run again
+    batches = sum(b for b, _, _ in plans.plans)
+    if not (rep.restarts == 1 and rep.refused_restores >= 1 and restored == [1]):
+        raise AssertionError(f"12a: {durability(rep)}, resumed from {restored}")
+    if not same_bits(final, hist, ref["final"], ref["hist"]):
+        raise AssertionError(f"12a: the resumed run differs from phase 7's device loop: "
+                             f"{[h['nnz'] for h in hist]} vs {[h['nnz'] for h in ref['hist']]}")
+    if plans.plans != want:
+        raise AssertionError(f"12a: plans {plans.plans} against phase 7's {want}")
+    if launches["segment_reduce"] < batches:
+        raise AssertionError(f"12a: {launches['segment_reduce']} segment-reduce launches for "
+                             f"{batches} batches")
+    log(f"12a: bit-identical to phase 7's device loop (trajectory, final matrix, every "
+        f"iteration's b, caps and path); wall {wall:.2f} s against {ref['wall']:.2f} s, peak "
+        f"{peak / 2**30:.3f} GiB against {ref['peak'] / 2**30:.3f} GiB; {batches} batches run, "
+        f"segment_reduce launches {launches['segment_reduce']}")
+    return {"launches": launches["segment_reduce"], "wall": wall, "peak": peak,
+            "report": rep.to_dict()}
+
+
+STRAGGLE_S = 60.0  # 12b: the first child waits in iteration 3 until it is killed
+CHILD_TIMEOUT_S = 300
+
+
+def resume_child(ckpt_dir, out_path, straggle):
+    """12b's child process: phase 8's sparse n = 2^14 MCL loop on its
+    default (binned) multiply through mcl_iterate_resilient into
+    ``ckpt_dir``, with the kernels phase 2 built (it raises rather than
+    build one). ``straggle``: hold batch 0 of iteration 3 for STRAGGLE_S.
+    Writes the final matrix, trajectory and report to ``out_path``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.core import convert
+    from repro_torch.core.grid import make_grid
+    from repro_torch.kernels import _build, spgemm_binned as Bn
+    from repro_torch.runtime.resilient import ResilientConfig, SpgemmFailureInjector
+    from repro_torch.sparse_apps import mcl
+
+    missing = [n for n in _build.SOURCES if not _build.library_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"12b child: kernels not built: {missing}")
+    a, cfg = mcl_dense_input()
+    cfg = dataclasses.replace(cfg, path="sparse")
+    inj = SpgemmFailureInjector(straggle_batches=((3, 0),), batch_straggle_s=STRAGGLE_S
+                                ) if straggle else None
+    newest = store.latest_step(ckpt_dir)
+    Bn.spgemm_paired_binned_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    final, hist, rep = mcl.mcl_iterate_resilient(
+        a, make_grid(1, 1, 1), cfg, ResilientConfig(ckpt_dir=ckpt_dir, ckpt_every=1),
+        injector=inj)
+    torch.cuda.synchronize()
+    r, c, v = convert.triplets(final)
+    np.savez(out_path, rows=r, cols=c, vals=v, nnz=[h["nnz"] for h in hist],
+             chaos=[h["chaos"] for h in hist])
+    with open(out_path + ".json", "w") as f:
+        json.dump({"report": rep.to_dict(), "newest_step": newest,
+                   "binned_launches": Bn.spgemm_paired_binned_cuda.launches,
+                   "wall": time.perf_counter() - t0, "loaded": sorted(_build._LIBS)}, f)
+
+
+def phase12b(ref, root):
+    """12b: a child runs the n = 2^14 loop (``resume_child``) and is
+    SIGKILLed once step 3 is in the store; a second child resumes from
+    step 3 and must end on phase 8's binned loop, bit for bit."""
+    from repro_torch.checkpoint import store
+
+    ckpt = os.path.join(root, "12b")
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    first = ctx.Process(target=resume_child, args=(ckpt, os.path.join(root, "first"), True),
+                        name="12b-first")
+    first.start()
+    try:
+        deadline = time.monotonic() + CHILD_TIMEOUT_S
+        while not os.path.isdir(os.path.join(ckpt, "step_00000003")):
+            if first.exitcode is not None:
+                raise AssertionError(f"12b: the first child exited ({first.exitcode}) "
+                                     f"before step 3 was stored")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"12b: no step 3 in {CHILD_TIMEOUT_S} s")
+            time.sleep(0.02)
+        first.kill()
+        first.join(30)
+    finally:
+        if first.is_alive():
+            first.kill()
+            first.join()
+    if first.exitcode != -signal.SIGKILL:
+        raise AssertionError(f"12b: the first child ended with {first.exitcode}, not SIGKILL")
+    killed = time.perf_counter() - t0
+    log(f"12b: first child SIGKILLed {killed:.1f} s after its start, store holds steps "
+        f"{store.steps_available(ckpt)}")
+    out = os.path.join(root, "second.npz")
+    second = ctx.Process(target=resume_child, args=(ckpt, out, False), name="12b-second")
+    second.start()
+    second.join(CHILD_TIMEOUT_S)
+    if second.is_alive():
+        second.kill()
+        second.join()
+        raise TimeoutError(f"12b: the second child ran over {CHILD_TIMEOUT_S} s")
+    if second.exitcode != 0:
+        raise AssertionError(f"12b: the second child failed ({second.exitcode})")
+    with open(out + ".json") as f:
+        info = json.load(f)
+    got = np.load(out)
+    fin, hist = ref
+    r = fin.rows[: int(fin.nnz)].cpu().numpy()
+    c = fin.cols[: int(fin.nnz)].cpu().numpy()
+    v = fin.vals[: int(fin.nnz)].cpu().numpy()
+    same = (np.array_equal(got["rows"], r) and np.array_equal(got["cols"], c)
+            and np.array_equal(got["vals"].view(np.int32), v.view(np.int32))
+            and got["nnz"].tolist() == [h["nnz"] for h in hist]
+            and got["chaos"].tolist() == [h["chaos"] for h in hist])
+    rep = info["report"]
+    if not (same and info["newest_step"] == 3 and rep["restarts"] == 0
+            and rep["refused_restores"] == 0 and info["binned_launches"] > 0):
+        raise AssertionError(f"12b: resumed run {got['nnz'].tolist()} against phase 8's "
+                             f"{[h['nnz'] for h in hist]}, bit-identical {same}, {info}")
+    log(f"12b: the second child resumed from step {info['newest_step']} and ended bit-identical "
+        f"to phase 8's binned loop (nnz {got['nnz'].tolist()}); its loop {info['wall']:.2f} s, "
+        f"binned launches {info['binned_launches']}, checkpoint_bytes "
+        f"{rep['checkpoint_bytes']}, checkpoint_stall_s {rep['checkpoint_stall_s']:.4f}, "
+        f"restarts {rep['restarts']}, refused_restores {rep['refused_restores']}; "
+        f"12b {time.perf_counter() - t0:.1f} s; the children loaded {info['loaded']}")
+    return {"launches": info["binned_launches"], "report": rep}
+
+
+N_APSP = 1 << 11
+N_APSP_PAIR = 1 << 10  # the ESC run (its expansion is the whole product) and its hash twin
+APSP_BUDGET = 2 << 30  # the dense-tile operand caps alone charge 12 B x 2 x n^2 (100 MB)
+APSP_OUT_DEGREE = 8
+APSP_RTOL = 1e-5  # f32 path sums vs scipy's f64 Dijkstra
+
+
+def weighted_digraph(n, seed=11):
+    """APSP's input: about APSP_OUT_DEGREE out-edges a vertex, weights
+    uniform in [1, 10), no self-loops (the JAX package's test generator),
+    as numpy (rows, cols, vals)."""
+    rng = np.random.default_rng(seed)
+    w = rng.random((n, n)).astype(np.float32) * 9 + 1
+    mask = rng.random((n, n)) < APSP_OUT_DEGREE / n
+    np.fill_diagonal(mask, False)
+    r, c = np.nonzero(mask)
+    return r.astype(np.int32), c.astype(np.int32), w[r, c]
+
+
+def scipy_apsp(coo, n):
+    import scipy.sparse as sps
+    from scipy.sparse.csgraph import shortest_path
+
+    r, c, v = coo
+    return shortest_path(sps.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n)),
+                         method="D", directed=True)
+
+
+def apsp_bits(final):
+    from repro_torch.core import convert
+
+    r, c, v = convert.triplets(final)
+    return r, c, v.view(np.int32)
+
+
+def check_apsp(label, final, want):
+    """The reachable pairs identical to scipy's, distances within APSP_RTOL."""
+    from repro_torch.core import convert
+
+    r, c, v = convert.triplets(final)
+    got = np.zeros(want.shape, bool)
+    got[r, c] = True
+    reach = np.isfinite(want)
+    if not (np.isfinite(v).all() and np.array_equal(got, reach)):
+        raise AssertionError(f"{label}: {len(r)} reachable pairs, scipy {int(reach.sum())}")
+    w = want[r, c]
+    err = float((np.abs(v - w) / np.maximum(w, 1e-30)).max())
+    if not np.allclose(v, w, rtol=APSP_RTOL, atol=0):
+        raise AssertionError(f"{label}: distances off scipy's by rel {err}")
+    log(f"{label}: {len(r)} reachable pairs as scipy's, max rel err {err:.3g}")
+    return err
+
+
+def run_apsp(a, grid, cfg, label, ckpt_dir=None, injector=None):
+    """apsp_iterate (or, with ``ckpt_dir``, apsp_iterate_resilient) with
+    the hash, segment-reduce and binned counts set to 0 just before; logs
+    every iteration. Returns (final, history, wall, peak, launches)."""
+    import torch
+
+    from repro_torch.runtime.resilient import ResilientConfig
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    counted = counted_kernels()
+    for w in counted.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RestoreLog() as restores:
+        if ckpt_dir is None:
+            final, hist = ga.apsp_iterate(a, grid, cfg)
+            rep = None
+        else:
+            final, hist, rep = ga.apsp_iterate_resilient(
+                a, grid, cfg, ResilientConfig(ckpt_dir=ckpt_dir), injector=injector)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: w.launches for name, w in counted.items()}
+    log(f"{label}: {len(hist)} iterations, wall {wall:.2f} s, peak {peak / 2**30:.3f} GiB, "
+        f"launches {launches}" + (f"; {durability(rep)}, resumed from {restores.steps}"
+                                  if rep is not None else ""))
+    for h in hist:
+        log(f"  iter {h['iter']}: nnz {h['nnz']}, b={h.get('batches')}, path "
+            f"{h.get('local_path')}, retries {h['retries']}, {h['wall_ms']:.1f} ms")
+    return final, hist, wall, peak, launches, rep, restores.steps
+
+
+def hold_segment_min(label, vals, offsets):
+    """The segment kernel's min on one input against its plain version and
+    a second call: exactly (a min has no rounding). Returns 0.0."""
+    import torch
+
+    from repro_torch.kernels import segment_reduce as S
+
+    got = S.segment_reduce_cuda(vals, offsets, "min")
+    again = S.segment_reduce_cuda(vals, offsets, "min")
+    want = S.segment_reduce_ref(vals, offsets, "min")
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError(f"{label}: segment_reduce min differs from plain "
+                             f"({int((got != want).sum())} runs) or between calls")
+    lengths = offsets[1:] - offsets[:-1]
+    log(f"{label}: segment_reduce min over {lengths.numel()} runs (longest "
+        f"{int(lengths.max())}, {int(offsets[-1] - offsets[0])} entries) equal to plain and to "
+        f"a second call")
+    return 0.0
+
+
+def phase12c(grid, root):
+    """12c: APSP on the hash path at n = 2^11 against scipy's Dijkstra; the
+    "auto" plan; ESC and hash at n = 2^10, bit-identical to each other and
+    equal to scipy (a min segment reduction of the ESC run held exactly
+    against its plain version first); the resilient run at n = 2^11,
+    preempted at iteration 3, bit-identical to the uninterrupted one."""
+    import dataclasses
+
+    from repro_torch.core.batched import plan_batches
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.sparse import from_numpy_coo
+    from repro_torch.core.specs import PlanSpec
+    from repro_torch.runtime.resilient import SpgemmFailureInjector
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    out = {}
+    t0 = time.perf_counter()
+    coo = weighted_digraph(N_APSP)
+    a = from_numpy_coo(*coo, (N_APSP, N_APSP), device=grid.device)
+    want = scipy_apsp(coo, N_APSP)
+    log(f"12c: n={N_APSP}, {len(coo[0])} edges, scipy Dijkstra (f64) "
+        f"{time.perf_counter() - t0:.1f} s, {int(np.isfinite(want).sum())} reachable pairs")
+    cfg = ga.APSPConfig(per_process_memory=APSP_BUDGET, local_path="hash")
+    fin, hist, wall, peak, launches, _, _ = run_apsp(a, grid, cfg, f"12c apsp n={N_APSP}, hash")
+    check_apsp(f"12c apsp n={N_APSP} hash vs scipy", fin, want)
+    run_b = sum(h["batches"] for h in hist)
+    if launches["hash"] != run_b:
+        raise AssertionError(f"12c: {launches['hash']} hash launches for {run_b} batches")
+    out["hash_n2^11"] = launches["hash"]
+    # plan only: APSPConfig(local_path="auto") under the driver's
+    # ExecSpec(binned=False) plans the ESC budget (as in the reference); the
+    # planner's own "auto" beside it
+    _, _, reserved = ga._apsp_caps(N_APSP, grid, cfg)
+    A, B = scatter_to_grid(fin, grid, "A"), scatter_to_grid(fin, grid, "B")
+    for name, lp in (("apsp_iterate's \"auto\" (the ESC budget)", "esc"),
+                     ("the planner's own \"auto\"", "auto")):
+        p = plan_batches(A, B, grid, APSP_BUDGET,
+                         spec=PlanSpec(local_path=lp, reserved_bytes=reserved))
+        log(f"12c apsp n={N_APSP}, plan on the fixpoint iterate, {name}: path {p.local_path}, "
+            f"b={p.num_batches}, caps {p.caps}, hash_caps {p.hash_caps}, flops "
+            f"{p.total_flops}, compression est {p.compression_est:.1f}")
+    del A, B
+    inj = SpgemmFailureInjector(preempt_iters=(3,))
+    fin_r, hist_r, wall_r, _, launches_r, rep, restored = run_apsp(
+        a, grid, cfg, f"12c apsp n={N_APSP}, hash, resilient", os.path.join(root, "12c"), inj)
+    if not (rep.restarts == 1 and all(np.array_equal(x, y) for x, y in
+                                      zip(apsp_bits(fin_r), apsp_bits(fin)))
+            and [h["nnz"] for h in hist_r] == [h["nnz"] for h in hist]):
+        raise AssertionError(f"12c: the resumed APSP differs or did not restart: "
+                             f"{durability(rep)}")
+    log(f"12c apsp n={N_APSP}: resumed from {restored}, bit-identical to the uninterrupted "
+        f"run; wall {wall_r:.2f} s against {wall:.2f} s")
+    out["hash_n2^11_resilient"] = launches_r["hash"]
+    out["resilient_report"] = rep.to_dict()
+    del fin, fin_r
+    # n = 2^10: ESC (a min segment reduction held first) and hash, bit for bit
+    coo = weighted_digraph(N_APSP_PAIR)
+    a = from_numpy_coo(*coo, (N_APSP_PAIR, N_APSP_PAIR), device=grid.device)
+    want = scipy_apsp(coo, N_APSP_PAIR)
+    esc = dataclasses.replace(cfg, local_path="esc")
+    _, inputs = capture_segment_inputs(
+        lambda: ga.apsp_iterate(a, grid, dataclasses.replace(esc, max_iters=3)), clone=True)
+    mins = [(v, o) for v, o, kind in inputs if kind == "min"]
+    if not mins:
+        raise AssertionError("12c: the ESC run made no min segment reduction")
+    v, o = max(mins, key=lambda x: x[1].numel())
+    out["min_hold_err"] = hold_segment_min(f"12c apsp n={N_APSP_PAIR} esc, one batch", v, o)
+    del inputs, mins, v, o
+    bits = {}
+    for lp, c in (("esc", esc), ("hash", cfg)):
+        f, h, _, _, la, _, _ = run_apsp(a, grid, c, f"12c apsp n={N_APSP_PAIR}, {lp}")
+        check_apsp(f"12c apsp n={N_APSP_PAIR} {lp} vs scipy", f, want)
+        bits[lp] = apsp_bits(f)
+        out[f"{lp}_n2^10"] = la["segment_reduce" if lp == "esc" else "hash"]
+        if lp == "esc" and la["segment_reduce"] < sum(x["batches"] for x in h):
+            raise AssertionError(f"12c esc: {la['segment_reduce']} segment-reduce launches")
+    if not all(np.array_equal(x, y) for x, y in zip(bits["esc"], bits["hash"])):
+        raise AssertionError("12c: ESC and hash APSP differ at n=2^10")
+    log(f"12c apsp n={N_APSP_PAIR}: ESC and hash bit-identical; 12c {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def durability_phase(grid, ref7, ref8):
+    """Phase 12 on this card, checkpoints in a temporary directory removed
+    at the end. Returns each part's launches and reports."""
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_12_")
+    try:
+        out = {"12a": phase12a(grid, ref7, root)}
+        log(f"12a: {time.perf_counter() - t0:.1f} s")
+        out["12b"] = phase12b(ref8, root)
+        out["12c"] = phase12c(grid, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def resilient_grid_rank(grid, a, cfg, ref, ckpt_dir):
+    """12d on one rank: the grid's sparse MCL loop through
+    mcl_iterate_resilient into ``ckpt_dir`` (rank 0 writes), preempted at
+    batch 3 of iteration 2 (or its last batch, if it has fewer), held to
+    ``ref`` = the grid's own loop (final, history, wall, peak) bit for
+    bit. Rank 0 also returns the newest checkpoint's leaf shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import store
+    from repro_torch.runtime.resilient import SpgemmFailureInjector
+
+    fin, hist, wall0, peak0 = ref
+    batch = min(3, hist[2]["batches"] - 1)
+    dist.barrier()
+    final, hist_r, wall, peak, launches, rep, restored = run_resilient_mcl(
+        a, grid, cfg, ckpt_dir, SpgemmFailureInjector(preempt_iters=(2,), preempt_batch=batch),
+        f"12d mcl sparse n=2^18, grid {grid.pr}x{grid.pc}x{grid.l}, rank {grid.rank}, resilient")
+    rec = {"batch": batch, "restored_from": restored, "report": rep.to_dict(),
+           "bit_identical": same_bits(final, hist_r, fin, hist), "wall": wall, "peak": peak,
+           "plain_wall": wall0, "plain_peak": peak0, "launches": launches}
+    if grid.rank == 0:
+        arrays = store.restore_arrays(ckpt_dir, store.latest_step(ckpt_dir))
+        rec["leaf_shapes"] = {k: tuple(x.shape) for k, x in arrays.items()}
+    return rec
+
+
+def check_resilient_grid(recs, backend):
+    """12d across ranks: one restart each, every rank resumed from the same
+    step, bit-identical to the grid's own loop; the checkpoint holds
+    (pr, pc, l, cap) tiles."""
+    shapes = recs[0]["leaf_shapes"]
+    steps = [x["restored_from"] for x in recs]
+    ok = (all(x["report"]["restarts"] == 1 and x["bit_identical"] for x in recs)
+          and all(s == steps[0] and len(s) == 1 for s in steps)
+          and shapes["['A_nnz']"] == (2, 2, 1) and shapes["['A_rows']"][:3] == (2, 2, 1))
+    for r, x in enumerate(recs):
+        rep = x["report"]
+        log(f"12d grid 2x2x1 ({backend}) rank {r}: preempted at batch {x['batch']} of iteration "
+            f"2, resumed from {x['restored_from']}, bit-identical {x['bit_identical']}; wall "
+            f"{x['wall']:.2f} s against {x['plain_wall']:.2f} s, peak {x['peak'] / 2**30:.3f} "
+            f"GiB against {x['plain_peak'] / 2**30:.3f} GiB; restarts {rep['restarts']}, "
+            f"refused_restores {rep['refused_restores']}, checkpoint_bytes "
+            f"{rep['checkpoint_bytes']}, checkpoint_stall_s {rep['checkpoint_stall_s']:.4f}")
+    log(f"12d: checkpoint leaves {shapes}")
+    if not ok:
+        raise AssertionError(f"12d: restores {steps}, shapes {shapes}, "
+                             f"{[(x['report']['restarts'], x['bit_identical']) for x in recs]}")
+
+
 def main() -> int:
     import argparse
 
@@ -2962,10 +3495,10 @@ def main() -> int:
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
     # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
-    seg_mcl = mcl_sparse_phase(grid)
+    seg_mcl, ref7 = mcl_sparse_phase(grid)
     log(f"phase 7: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    dense_launches = mcl_dense_phase(grid, a_mcl, cfg_dense)
+    dense_launches, ref8 = mcl_dense_phase(grid, a_mcl, cfg_dense)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
     del a_mcl
     torch.cuda.empty_cache()
@@ -2983,6 +3516,10 @@ def main() -> int:
     del a14, ref14
     torch.cuda.empty_cache()
     log(f"phase 11 (one card): {time.perf_counter() - t0:.1f} s")
+    # 12. durability: the resilient MCL loops and APSP
+    p12 = durability_phase(grid, ref7, ref8)
+    del ref7, ref8
+    torch.cuda.empty_cache()
     # 9. four ranks on this card over gloo, with 11's grid parts
     grid_launches, dense_grid = grid_phase(
         N_GRID, "gloo", with_mcl=False, tri_scale=TRI_PINNED_SCALE,
@@ -3067,6 +3604,16 @@ def main() -> int:
         "placement": {s: x["launches"] for s, x in p11["placement"].items()}}
     row["segment_reduce"]["phase11_sparse_step_n2^18_launches"] = \
         p11["sparse"]["esc"]["segment_reduce"]
+    # phase 12's launches, each run's counts set to 0 just before it
+    p12c = p12["12c"]
+    row["hash_insert"]["phase12_launches"] = {
+        "apsp_n2^11_hash": p12c["hash_n2^11"], "apsp_n2^11_hash_resilient":
+        p12c["hash_n2^11_resilient"], "apsp_n2^10_hash": p12c["hash_n2^10"]}
+    row["segment_reduce"]["phase12_launches"] = {
+        "mcl_n2^18_resilient": p12["12a"]["launches"], "apsp_n2^10_esc_min": p12c["esc_n2^10"]}
+    row["segment_reduce"]["phase12_min_max_abs_err"] = p12c["min_hold_err"]
+    row["spgemm_paired_binned"]["phase12_launches"] = {
+        "mcl_n2^14_resumed_child": p12["12b"]["launches"]}
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

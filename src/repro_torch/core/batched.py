@@ -57,12 +57,13 @@ from .symbolic import (
     rup8 as _rup8,
     rup_pow2 as _rup_pow2,
 )
-from ..runtime.driver import LookaheadWindow
 
 # auto-dispatch threshold: the hash path pays a per-chunk insert pass, so it
 # must buy at least this compression factor (flops per merged survivor)
 # before the plan prefers it over ESC/binned.
 HASH_CF_THRESHOLD = 2.0
+
+_I32_MAX = int(np.iinfo(np.int32).max)
 
 # partial products enumerated per reused chunk buffer of the hash path
 HASH_CHUNK_CAP = 4096
@@ -356,6 +357,14 @@ def plan_from_symbolic(
             floors.num_batches,
         )
     nb = dist.round_batches(tn_b, nb, l)
+    if budget_hash and spec.force_num_batches is None:
+        # the hash multiply enumerates a batch's partial products through an
+        # i32 prefix (kernels.spgemm_hash.Expansion.cum): batch more finely
+        # until no process forms 2^31 of them in one batch (a dense
+        # min-plus square at n = 2^11 forms 2^33; the reference wraps)
+        while (nb < tn_b // l
+               and int(dist.fold(percol, nb, l).sum(axis=-1).max()) > _I32_MAX):
+            nb = dist.round_batches(tn_b, nb + 1, l)
 
     # per-(process, batch, piece) flops via the distribution's fold
     flops_pbp = dist.fold(percol, nb, l)  # (pr,pc,l,nb,l)
@@ -919,6 +928,9 @@ def batched_summa3d(
             c_batch = post(bi, run_batch_guarded(bi))
             consumed.append(consumer(bi, c_batch, _col_map(bi)))
     else:
+        # deferred import: runtime.resilient imports this module (RunReport)
+        from ..runtime.driver import LookaheadWindow
+
         window = LookaheadWindow.from_exec(ex, finish)
         for bi in range(nb):
             c_batch, ovf = dispatch(bi, caps, sel_cap, kb, hc, mask_cap)

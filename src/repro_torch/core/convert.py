@@ -11,7 +11,7 @@
     in global coordinates, on the batch's device.
   * ``iterate_from_reference`` — an MCL iterate of the JAX package (its
     ``MCLLoopState``: the A/B operands, iteration, chaos, plan floors and
-    pinned local path) as the fields of the port's ``MCLLoopState``, so
+    pinned binned and local-path decisions) as the fields of the port's ``MCLLoopState``, so
     both loops can go on from the same iterate.
 """
 from __future__ import annotations
@@ -78,13 +78,14 @@ def batch_to_global(c: DistSparse, col_map: np.ndarray) -> Tuple[Tensor, Tensor,
 def iterate_from_reference(state, device="cuda") -> dict:
     """Fields of the port's ``sparse_apps.mcl.MCLLoopState`` holding the
     reference state's iterate: ``A``/``B`` (padded tiles unchanged), ``it``,
-    ``chaos``, ``floors`` (through ``PlanFloors.to_meta``) and ``lp_arg``.
-    The history and the run report start empty."""
+    ``chaos``, ``floors`` (through ``PlanFloors.to_meta``), ``binned_arg``
+    and ``lp_arg``. The history and the run report start empty."""
     return {
         "A": from_reference(state.A, device),
         "B": from_reference(state.B, device),
         "it": int(state.it),
         "chaos": float(state.chaos),
         "floors": PlanFloors.from_meta(state.floors.to_meta()),
+        "binned_arg": state.binned_arg,
         "lp_arg": state.lp_arg,
     }

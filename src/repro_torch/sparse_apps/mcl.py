@@ -45,6 +45,11 @@ at module level so that it pickles)::
     per_rank = spawn.run(rank_fn, (2, 2, 1), backend="nccl", device="cuda",
                          args=(cfg,))
 
+Long runs go through ``mcl_iterate_resilient(a, grid, cfg, rc)`` with a
+``runtime.resilient.ResilientConfig`` (checkpoint directory and cadence):
+a preempted, corrupted or killed run resumes from its newest valid
+checkpoint on the uninterrupted run's trajectory, bit for bit.
+
 ``history[i]["host_bytes"]`` records the host↔device traffic of iteration
 i: a few stat scalars on the device loop, the whole matrix every batch on
 the host loop.
@@ -67,6 +72,7 @@ from ..core.specs import ExecSpec, PlanFloors, PlanSpec
 from ..core.summa3d import _squeeze_tile, reassemble_operands
 from ..core.symbolic import rup8 as _rup8
 from ..kernels.col_prune import THRESH_ITERS, col_topk_bounds
+from ..runtime.resilient import ResilientConfig, run_iterated
 
 Tensor = torch.Tensor
 
@@ -83,6 +89,7 @@ class MCLConfig:
     force_num_batches: Optional[int] = None  # None: symbolic-step planning
     lookahead: int = 2  # pipelined driver window
     r_bytes: int = 12  # bytes per stored nonzero (COO: i32+i32+f32)
+    binned: object = "auto"  # sparse local multiply: "auto" | True | False
     # sparse local multiply: "auto" | "esc" | "binned" | "hash"
     local_path: str = "auto"
 
@@ -152,12 +159,14 @@ def _prune_topk_np(rows, cols, vals, n, thresh, k):
 
 
 def _record_iter(history, it, nnz, chaos, res, t0, t0_bytes, verbose):
-    """Per-iteration epilogue: one history row schema for all three loops."""
+    """Per-iteration epilogue: one history row schema for all three loops.
+    Every value is a plain Python number or string: the resilient loop
+    stores the history in its checkpoint's JSON manifest."""
     history.append({
         "iter": it, "nnz": nnz, "chaos": chaos,
-        "batches": res.plan.num_batches, "flops": res.plan.total_flops,
+        "batches": int(res.plan.num_batches), "flops": int(res.plan.total_flops),
         "local_path": res.local_path,
-        "retries": res.num_retries, "replans": res.report.replans,
+        "retries": int(res.num_retries), "replans": int(res.report.replans),
         "host_bytes": transfer_bytes() - t0_bytes,
         "wall_ms": (time.perf_counter() - t0) * 1e3,
     })
@@ -329,8 +338,11 @@ def _extract_dense_batch(tiles: np.ndarray, col_map: np.ndarray):
 class MCLLoopState:
     """Everything one sparse MCL iteration carries to the next: the
     device-resident iterate (A/B operands) and the plan signature — the
-    ``PlanFloors`` pinned after the first iteration and the pinned
-    local-multiply decision."""
+    ``PlanFloors`` pinned after the first iteration and the pinned binned
+    and local-multiply decisions. The resilient loop checkpoints exactly
+    this: the tiles through the content-hashed store, the signature as
+    manifest meta, so a restored run plans what the uninterrupted run
+    planned."""
 
     A: DistSparse
     B: DistSparse
@@ -339,6 +351,7 @@ class MCLLoopState:
     history: List[dict]
     report: RunReport
     floors: PlanFloors = dataclasses.field(default_factory=PlanFloors)
+    binned_arg: object = "auto"
     lp_arg: str = "auto"
 
 
@@ -359,19 +372,24 @@ def _mcl_cold_state(a: SparseCOO, grid: Grid, cfg: MCLConfig) -> MCLLoopState:
     return MCLLoopState(
         A=_scatter(a, grid, "A"), B=_scatter(a, grid, "B"),
         it=0, chaos=float("inf"), history=[], report=RunReport(),
-        lp_arg=cfg.local_path,
+        binned_arg=cfg.binned, lp_arg=cfg.local_path,
     )
 
 
 def _mcl_sparse_step(
     state: MCLLoopState, grid: Grid, cfg: MCLConfig, verbose: bool = False,
+    injector=None, slack: Optional[float] = None,
 ) -> Tuple[MCLLoopState, RunReport, bool]:
     """One device-resident MCL iteration on explicit state.
 
     Returns ``(state', per-iteration RunReport, converged)``. The plan
-    floors and the local-multiply decision are pinned after the first
-    iteration (pow2-quantized, monotone capacities), so every later
-    iteration plans onto the same capacities as nnz drifts.
+    floors and the binned and local-multiply decisions are pinned after the
+    first iteration (pow2-quantized, monotone capacities), so every later
+    iteration plans onto the same capacities as nnz drifts. ``injector``
+    (resilient runs) hooks the consumer: straggler sleeps and
+    mid-iteration preemption fire at batch granularity, inside the
+    pipelined lookahead window; ``slack`` overrides the planner's capacity
+    slack (overflow-storm injection).
     """
     n = state.A.shape[0]
     tm = n // grid.pr
@@ -392,6 +410,9 @@ def _mcl_sparse_step(
         )
 
     def consumer(bi, payload, col_map):
+        if injector is not None:
+            injector.maybe_straggle_batch(it, bi)
+            injector.maybe_preempt(it, batch=bi)
         pruned, st = payload
         batches.append(pruned)
         stats.append(st)
@@ -403,12 +424,14 @@ def _mcl_sparse_step(
         spec=PlanSpec(
             local_path=state.lp_arg, r_bytes=cfg.r_bytes,
             reserved_bytes=reserved, force_num_batches=cfg.force_num_batches,
+            **({"slack": slack} if slack is not None else {}),
         ),
         floors=state.floors.replace(caps_pow2=True),
-        exec_spec=ExecSpec(lookahead=cfg.lookahead),
+        exec_spec=ExecSpec(lookahead=cfg.lookahead, binned=state.binned_arg),
     )
-    # pin this iteration's decision and used capacities (monotone fold)
+    # pin this iteration's decisions and used capacities (monotone fold)
     state.floors = state.floors.merged(res.floors())
+    state.binned_arg = bool(res.binned)
     state.lp_arg = res.local_path
     state.A, state.B, ovf = reassemble_operands(tuple(batches), grid, cap_a, cap_b)
     # one host sync per iteration, scalars only (convergence check)
@@ -451,6 +474,129 @@ def mcl_iterate(
     if cfg.path == "dense":
         return _mcl_iterate_dense(a, grid, cfg, verbose)
     return mcl_continue(_mcl_cold_state(a, grid, cfg), grid, cfg, verbose)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint codec + resilient loop (the durability harness)
+# ---------------------------------------------------------------------------
+def _dist_to_arrays(d: DistSparse, prefix: str, arrays: dict, grid: Grid) -> None:
+    """Every tile of ``d`` in the JAX package's checkpoint layout:
+    ``{prefix}_rows``/``_cols``/``_vals`` of shape (pr, pc, l, cap) and
+    ``{prefix}_nnz`` of shape (pr, pc, l), gathered over the grid (a
+    collective on every rank), on the grid's device."""
+    for f in ("rows", "cols", "vals", "nnz"):
+        arrays[f"{prefix}_{f}"] = grid.gather_grid(getattr(d, f)[0, 0, 0])
+
+
+def _dist_from_arrays(
+    arrays: dict, prefix: str, grid: Grid, shape, tile_shape, kind: str
+) -> DistSparse:
+    """This rank's tile of checkpointed (pr, pc, l, ...) stacks, bit for
+    bit, on the grid's device. The checkpoint must come from a grid of the
+    same shape."""
+    saved = tuple(arrays[f"{prefix}_nnz"].shape)
+    if saved != (grid.pr, grid.pc, grid.l):
+        raise ValueError(f"checkpoint of a {saved} grid restored on a "
+                         f"{(grid.pr, grid.pc, grid.l)} grid")
+    i, j, k = grid.coords
+
+    def tile(f):
+        x = np.array(arrays[f"{prefix}_{f}"][i, j, k])  # nnz stays 0-d
+        return torch.from_numpy(x).to(grid.device).reshape(1, 1, 1, *x.shape)
+
+    return DistSparse(
+        rows=tile("rows"), cols=tile("cols"), vals=tile("vals"), nnz=tile("nnz"),
+        shape=tuple(shape), tile_shape=tuple(tile_shape),
+        grid_shape=(grid.pr, grid.pc, grid.l), kind=kind, coords=grid.coords,
+    )
+
+
+def _plan_sig_encode(state: MCLLoopState) -> dict:
+    """JSON-safe plan signature: the floors (``PlanFloors.to_meta``) and the
+    two pinned driver decisions."""
+    return {
+        "floors": state.floors.to_meta(),
+        "binned": state.binned_arg,
+        "local_path": state.lp_arg,
+    }
+
+
+def _plan_sig_decode(state: MCLLoopState, sig: dict) -> None:
+    """Inverse of ``_plan_sig_encode``; takes the JAX package's signature as
+    it stands (its ``binned`` is "auto" before the first iteration, then a
+    bool)."""
+    state.floors = PlanFloors.from_meta(sig["floors"])
+    state.binned_arg = sig["binned"]
+    state.lp_arg = sig["local_path"]
+
+
+def mcl_iterate_resilient(
+    a: SparseCOO, grid: Grid, cfg: MCLConfig, rc: ResilientConfig,
+    injector=None, verbose: bool = False,
+) -> Tuple[SparseCOO, List[dict], RunReport]:
+    """``mcl_iterate`` (sparse path) under the durability harness
+    (``runtime.resilient.run_iterated``): checkpoint every
+    ``rc.ckpt_every`` iterations (the A/B tiles and the plan signature),
+    resume from the newest valid checkpoint after a preemption (or on
+    launch, unless ``rc.resume=False``), refuse corrupt checkpoints, and
+    report retries, replans, restarts, refusals, stalls and stragglers in
+    the returned ``RunReport``.
+
+    The tiles round-trip bit for bit and the plan signature restores the
+    floors and pinned decisions, so on the order-fixed multiplies (ESC,
+    k-binned) a resumed run's trajectory and final matrix are the
+    uninterrupted run's, bit for bit. The checkpoint format is the JAX
+    package's: either package resumes the other's run. On a grid of more
+    than one process every rank calls this with the same arguments; rank 0
+    writes.
+    """
+    assert cfg.path == "sparse", "resilient MCL requires the sparse path"
+    n = a.shape[0]
+    tile_a = (n // grid.pr, n // grid.pc // grid.l)
+    tile_b = (n // grid.pr // grid.l, n // grid.pc)
+
+    def encode(state: MCLLoopState):
+        arrays: dict = {}
+        _dist_to_arrays(state.A, "A", arrays, grid)
+        _dist_to_arrays(state.B, "B", arrays, grid)
+        meta = {
+            "workload": "mcl",
+            "it": state.it,
+            "chaos": state.chaos,
+            "history": state.history,
+            "report": state.report.to_dict(),
+            "plan_sig": _plan_sig_encode(state),
+        }
+        return arrays, meta
+
+    def decode(arrays: dict, meta: dict) -> MCLLoopState:
+        state = MCLLoopState(
+            A=_dist_from_arrays(arrays, "A", grid, (n, n), tile_a, "A"),
+            B=_dist_from_arrays(arrays, "B", grid, (n, n), tile_b, "B"),
+            it=int(meta["it"]), chaos=float(meta["chaos"]),
+            history=list(meta["history"]),
+            report=RunReport.from_dict(meta["report"]),
+        )
+        _plan_sig_decode(state, meta["plan_sig"])
+        return state
+
+    def step_fn(state: MCLLoopState, it: int, inj):
+        return _mcl_sparse_step(state, grid, cfg, verbose, injector=inj,
+                                slack=inj.capacity_slack(it))
+
+    result = run_iterated(
+        rc=rc, max_iters=cfg.max_iters,
+        cold_start=lambda: _mcl_cold_state(a, grid, cfg),
+        step_fn=step_fn, encode=encode, decode=decode,
+        injector=injector, verbose=verbose, grid=grid,
+    )
+    state = result.state
+    # the driver's ladder counts come from the iterate's own report (an
+    # abandoned iteration's are dropped); the loop adds the durability ones
+    return _gather(state.A, grid), state.history, state.report.merged(dataclasses.replace(
+        result.report, retries=0, sel_retries=0, replans=0, ladder_blocked=0,
+        degraded_batches=(),
+    ))
 
 
 def _mcl_iterate_dense(

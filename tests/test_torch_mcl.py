@@ -309,6 +309,7 @@ def test_mcl_continues_from_a_jax_iterate(grids):
     tstate = tmcl.MCLLoopState(**convert.iterate_from_reference(jstate, device="cpu"),
                                history=[], report=RunReport())
     assert tstate.it == 1 and tstate.floors.caps_pow2
+    assert tstate.binned_arg == jstate.binned_arg != "auto"  # the pinned decision
     _assert_dist_equal(tstate.A, jstate.A, rtol=0)
     fin_t, hist_t = tmcl.mcl_continue(tstate, grids[1], tcfg)
     hist_j = jstate.history
