@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-12, one card (10, 11 and 12 run before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's grid parts and 12d, four cards
+    python3 chip_smoke.py            # phases 1-13, one card (10 to 13 run before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -119,8 +119,16 @@ Phases (any failed check raises, so the script exits non-zero):
      kernel launching once a batch. With --chips 4 the
      sparse n = 2^18 MCL device loop then runs on the 2x2x1 grid, held
      against the same loop on one card (rank 0, first) as in 7: nnz within
-     NNZ_RTOL, chaos within CHAOS_RTOL, identical partitions. A rank that
-     fails fails the run.
+     NNZ_RTOL, chaos within CHAOS_RTOL, identical partitions. Then phase
+     13's grid part: 13a's mix of 6 requests (3 repeats of A0·A0, one
+     novel product of n/2, a min_plus product, one refusal) on the ESC
+     engine, at n = 2^16 over gloo on 2x2x1 and 1x1x4 (with --chips 4 at
+     n = 2^18 over NCCL on 2x2x1), every rank's stats, results and cache
+     keys equal and every C (the whole product, on every rank) against
+     scipy; and over gloo mcl_iterate_host (phase 8's sparse n = 2^14
+     loop) on 2x2x1 against the same loop on one card (rank 0, first):
+     nnz within NNZ_RTOL, identical partitions. A rank that fails fails
+     the run.
  10. The masked multiply (paper §V-B) on one card, each run with every
      launch count set to 0 just before and read just after; runs before 9.
        a. triangle_count (sparse_apps.graph_algorithms) of the symmetrized
@@ -224,14 +232,51 @@ Phases (any failed check raises, so the script exits non-zero):
           bit-identical to 9's loop; the checkpoint holds (2, 2, 1, cap)
           tiles (rank 0 writes).
 
+ 13. Serving (serve.SpgemmEngine) on one card; runs after 12. Each
+     engine's launch counts are set to 0 just before its run and read just
+     after; all requests of a stream are submitted at once, and the
+     expected plan-cache hits come from matrix_signature on the host
+     before the run. scipy's products are computed in a pool of worker
+     processes while the card works.
+       a. the ESC engine at n = 2^18 on A0, phase 7's MCL input before
+          normalization: the budget is 2.5 times the engine's price of
+          A0·A0 at the b the plan has at the least budget for b >= 4
+          (budget_for_batches), with that b as the seed floor of every
+          first plan, so two A0·A0 fit at once and three do not. 16
+          requests: 8 repeats of A0·A0, 6 novel products (n = 2^16 and
+          2^17, seeds 1-6), a min_plus A0 ⊗ A0, and one request priced on
+          the host to exceed the budget with its inputs alone (a
+          block-diagonal operand of dense blocks, the least block size that
+          does), which must be refused with no dispatch. At least one
+          deferral, exactly one refusal, the expected hits.
+       b. the hash engine on the same budget, seed floor b = 64 (the least
+          b whose packed keys fit i32): 4 repeats of A0·A0, 2 novel products
+          and 2 masked triangle-count products L·U ⊙ L of phase 10b's R-MAT
+          graph (mask_id "tri16"), whose C sums to phase 10's count. The
+          fused hash kernel launches once a batch dispatch (retries
+          included), the one-chunk kernel never.
+       c. the reference's default ServeConfig ("auto") at n = 2^14 with
+          phase 3c's budget: 4 repeats and 4 novel products (seeds 1-4);
+          the binned kernel launches once a k-binned batch dispatch.
+     Every plus_times C against scipy on the card (structure identical,
+     values within 1e-4), the min_plus C bit for bit against
+     batched_summa3d on the same operands and path, repeats on ESC and
+     k-binned bit-identical, a cache hit dispatched at its miss's static
+     signature (num_batches, caps, sel_cap, kbin caps, hash caps,
+     mask_cap, A.cap, B.cap). Logs each request's b, price, retries and
+     latency; latency p50/p99, requests/s and partial products/s; hit
+     against miss latency; the peak device memory against the budget and
+     the most admitted at once.
+
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
 phase 7's profiled batch; those two rows also hold each rank's launches in
 phase 9, and the hash row the masked kernel's numbers from 10; densify,
 SpMM, hash and segment rows also hold their launches in 11, the hash,
-segment and binned rows their launches in 12, and the SpMM row its
-accumulate mode's check) and the JSON result line; with --chips 4 only
+segment and binned rows their launches in 12 and in 13, the segment row
+its launches per rank in 9's serving, and the SpMM row its accumulate
+mode's check) and the JSON result line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -397,17 +442,7 @@ def bound_ms(nbytes: float, flops: float):
 
 def scipy_square(a):
     """scipy's A @ A for a port SparseCOO: (row-major keys r*n+c, values)."""
-    import scipy.sparse as sps
-
-    from repro_torch.core import convert
-
-    n = a.shape[0]
-    r, c, v = convert.triplets(a)
-    s = sps.csr_matrix((v, (r, c)), shape=a.shape)
-    p = (s @ s).tocsr()
-    p.sort_indices()
-    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(p.indptr))
-    return rows * n + p.indices.astype(np.int64), p.data
+    return scipy_product(a, a)
 
 
 def check_product(parts, ref, n) -> float:
@@ -2077,7 +2112,7 @@ def run_grid_multiply(A, B, grid, budget, local_path, profile):
     return res, wall, np.diff([t0] + stamps), parts, nccl_share(prof) if profile else None
 
 
-def grid_rank(grid, n, budget, with_mcl, tri_scale, p11, ckpt_dir=None):
+def grid_rank(grid, n, budget, with_mcl, tri_scale, p11, p13, ckpt_dir=None):
     """One rank of the distributed phase (spawned, one process per grid
     point). On each of GRID_SHAPES (the launcher's grid, then the others
     built in the same process group): this rank's tile of C = A·A on the
@@ -2093,7 +2128,7 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale, p11, ckpt_dir=None):
     own card and holds the grid's loop against, and then 12d: the same
     loop through ``mcl_iterate_resilient`` into ``ckpt_dir``, preempted
     mid-iteration (``resilient_grid_rank``). Then phase 11's parts on the
-    grid (``phase11_rank``). Returns per shape and run the pickled plan, b,
+    grid (``phase11_rank``) and phase 13's (``phase13_rank``). Returns per shape and run the pickled plan, b,
     wall, per-batch walls, launches and checks."""
     import pickle
 
@@ -2180,10 +2215,11 @@ def grid_rank(grid, n, budget, with_mcl, tri_scale, p11, ckpt_dir=None):
         out["mcl_resilient"] = resilient_grid_rank(grid, a, cfg, (fin, hist, wall, peak),
                                                    ckpt_dir)
     out["p11"] = phase11_rank(grid, p11, tri)
+    out["p13"] = phase13_rank(grid, p13)
     return out
 
 
-def grid_phase(n, backend, with_mcl, tri_scale, p11):
+def grid_phase(n, backend, with_mcl, tri_scale, p11, p13):
     """Phase 9: ``grid_rank`` on four ranks, one per grid point, over
     ``backend`` (gloo: all four on this card; nccl: one per card). Checks
     that every rank planned the same batches, that the second ESC run of
@@ -2191,9 +2227,10 @@ def grid_phase(n, backend, with_mcl, tri_scale, p11):
     launched once a batch and the segment reduction at least once a batch
     on every rank, and that every rank counted the one-card triangle count
     under the same masked plan; logs per rank and shape the wall, the batch
-    walls and b; then phase 11's records (``log_phase11_ranks``). Returns
-    the per-rank launches of the two kernels, by shape and run, and the
-    dense step's densify/SpMM launches per rank."""
+    walls and b; then phase 11's and 13's records (``log_phase11_ranks``,
+    ``log_phase13_ranks``). Returns the per-rank launches of the two
+    kernels, by shape and run, the dense step's densify/SpMM launches per
+    rank and the serving engine's segment reduction launches per rank."""
     from repro_torch.launch import spawn
 
     t0 = time.perf_counter()
@@ -2203,7 +2240,7 @@ def grid_phase(n, backend, with_mcl, tri_scale, p11):
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_12d_") if with_mcl else None
     try:
         ranks = spawn.run(grid_rank, GRID_SHAPES[0], backend=backend, device="cuda",
-                          args=(n, budget, with_mcl, tri_scale, p11, ckpt_dir),
+                          args=(n, budget, with_mcl, tri_scale, p11, p13, ckpt_dir),
                           timeout_s=GRID_TIMEOUT_S, workdir=workdir)
     finally:
         if ckpt_dir is not None:
@@ -2264,8 +2301,9 @@ def grid_phase(n, backend, with_mcl, tri_scale, p11):
                    if "one_card_wall" in m else ""))
         check_resilient_grid([x["mcl_resilient"] for x in ranks], backend)
     dense_launches = log_phase11_ranks(ranks, backend)
+    serve_launches = log_phase13_ranks(ranks, backend)
     log(f"phase 9 ({backend}, n={n}): {time.perf_counter() - t0:.1f} s")
-    return launches, dense_launches
+    return launches, dense_launches, serve_launches
 
 
 # ---------------------------------------------------------------------------
@@ -3317,6 +3355,558 @@ def check_resilient_grid(recs, backend):
                              f"{[(x['report']['restarts'], x['bit_identical']) for x in recs]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: serving — the plan-cached SpGEMM engine
+# ---------------------------------------------------------------------------
+SERVE_LEAST_B = 4  # 13a: one A0·A0 plans at least this many batches at the searched budget
+SERVE_HASH_FLOOR = 64  # 13b: the least b whose packed (tm, wb) keys fit i32 at n = 2^18
+N_SERVE_GLOO = 1 << 16  # phase 9: 13a's mix on the four gloo ranks
+# 13a's novel products A·A: (n, seed)
+SERVE_NOVEL = ((1 << 16, 1), (1 << 16, 2), (1 << 16, 3), (1 << 17, 4), (1 << 17, 5),
+               (1 << 17, 6))
+
+
+def protein(n, seed=0):
+    """The protein-similarity-like matrix (64-node clusters) on the host,
+    where a request's operands arrive."""
+    from repro_torch.core import gen
+
+    return gen.protein_similarity_like(n, blocks=n // 64, intra_p=0.12, seed=seed,
+                                       device="cpu")
+
+
+def block_dense(n, s):
+    """The n x n block-diagonal matrix of dense s x s blocks (unit values),
+    on the host, built in row-major order."""
+    import torch
+
+    from repro_torch.core.sparse import SparseCOO
+
+    rows = np.repeat(np.arange(n, dtype=np.int32), s)
+    cols = rows // s * s + np.tile(np.arange(s, dtype=np.int32), n)
+    return SparseCOO(torch.from_numpy(rows), torch.from_numpy(cols),
+                     torch.ones(n * s, dtype=torch.float32),
+                     torch.tensor(n * s, dtype=torch.int32), (n, n))
+
+
+def refused_operand(n, grid, budget, r=12):
+    """An operand X whose product X·X no split fits under ``budget``,
+    priced on the host: the least block size s of ``block_dense`` whose
+    per-process inputs r·(max A tile + max B tile) reach the budget, the
+    precondition of Alg. 3 that ``plan_batches`` raises MemoryError on
+    before any split. Returns (X, its per-process input bytes)."""
+    from repro_torch.core.distsparse import tile_nnz_counts
+    from repro_torch.core.symbolic import rup_pow2
+
+    s = rup_pow2(max(-(-budget * grid.pr * grid.l // (2 * r * n)), 1))
+    while s <= n:
+        x = block_dense(n, s)
+        need = r * (int(tile_nnz_counts(x, grid, "A").max())
+                    + int(tile_nnz_counts(x, grid, "B").max()))
+        if need >= budget:
+            return x, need
+        s *= 2
+    raise RuntimeError(f"no block-diagonal operand at n = {n} exceeds {budget} B")
+
+
+def serve_budget(a0, grid, least_b, local_path="esc"):
+    """13a's engine config: b, the batch count of the plan at the budget at
+    which one a0·a0 plans at least ``least_b`` batches (``budget_for_batches``
+    on the engine's signature capacities); p, the engine's price of a0·a0
+    at b batches (its pow2 capacities); then a budget of 2.5 p, with b as
+    the seed floor of every first plan, so that a0·a0 keeps that plan and
+    price there: two such requests fit at once and three do not. Returns
+    (ServeConfig, b, p, the searched budget)."""
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.specs import PlanFloors, PlanSpec
+    from repro_torch.serve import MultiplyRequest, ServeConfig, SpgemmEngine, matrix_signature
+
+    req = MultiplyRequest(rid=0, a=a0, b=a0)
+    key = matrix_signature(req, grid, ServeConfig(local_path=local_path))
+    A = scatter_to_grid(a0, grid, "A", cap=key[2][2])
+    B = scatter_to_grid(a0, grid, "B", cap=key[3][2])
+    low, plan = budget_for_batches(A, B, grid, PlanSpec(local_path=local_path), least_b)
+    del A, B
+    floors = PlanFloors(num_batches=plan.num_batches)
+    act, reason = SpgemmEngine(grid, ServeConfig(per_process_memory=1 << 50, local_path=local_path,
+                                                 seed_floors=floors))._price(req)
+    cfg = ServeConfig(per_process_memory=act.price * 5 // 2, local_path=local_path,
+                      seed_floors=floors)
+    again, _ = SpgemmEngine(grid, cfg)._price(req)
+    if again is None or (again.nb, again.price, again.splits) != (act.nb, act.price, 0):
+        raise AssertionError(f"a0·a0 at the raised budget {cfg.per_process_memory}: "
+                             f"{again and (again.nb, again.price, again.splits)}; unbounded: "
+                             f"b={act.nb}, price {act.price}")
+    return cfg, act.nb, act.price, low
+
+
+def min_plus_reference(a, grid, budget, local_path):
+    """``batched_summa3d`` of a ⊗ a over min_plus on ``grid`` (every batch
+    gathered to every rank): (row-major keys, values) on the grid's
+    device."""
+    import torch
+
+    from repro_torch.core import semiring as sr
+    from repro_torch.core.batched import batched_summa3d
+    from repro_torch.core.distsparse import scatter_to_grid
+    from repro_torch.core.specs import PlanSpec
+    from repro_torch.sparse_apps.mcl import _sparse_batch_to_global
+
+    parts = []
+    batched_summa3d(scatter_to_grid(a, grid, "A"), scatter_to_grid(a, grid, "B"), grid, budget,
+                    consumer=lambda bi, cb, cm: parts.append(_sparse_batch_to_global(cb, cm, grid)),
+                    semiring=sr.MIN_PLUS, spec=PlanSpec(local_path=local_path))
+    n = a.shape[1]
+    key = np.concatenate([p[0].astype(np.int64) * n + p[1] for p in parts])
+    vals = np.concatenate([p[2] for p in parts])
+    order = np.argsort(key, kind="stable")
+    return (torch.as_tensor(key[order], device=grid.device),
+            torch.as_tensor(vals[order], device=grid.device))
+
+
+def serve_run(label, grid, cfg, stream, ops, refs, least_deferred=0, min_plus=None,
+              verbose=True):
+    """One engine on ``grid`` under ``cfg`` serves ``stream``, a list of
+    (rid, operand pair, semiring, refused?) over ``ops`` (pair -> (a, b,
+    mask, mask_id)), with every launch count set to 0 just before the run
+    and read just after. The expected plan-cache hits and misses come from
+    ``matrix_signature`` on the host before the run. Checks, on the card:
+    the stats (hits, misses, refused, served exact; at least
+    ``least_deferred`` deferrals); each refused request refused with no
+    dispatch; every plus_times C against ``refs(pair)``, scipy's (keys,
+    values) on the card (structure identical, values within VALUE_RTOL);
+    every min_plus C bit for bit against ``min_plus(pair)``;
+    repeats of one pair on the ESC and k-binned multiplies bit-identical;
+    a cache hit dispatched at its miss's static signature when every
+    request of its key so far was the same operand pair and the miss took
+    no retry (another pair's needs fold into the key's floors). Returns the
+    record the caller logs and compares, with each served C's value sum."""
+    import torch
+
+    from repro_torch.core import semiring as sr
+    from repro_torch.serve import MultiplyRequest, SpgemmEngine, matrix_signature
+
+    reqs = []
+    for rid, pair, semiring, _ in stream:
+        a, b, mask, mask_id = ops[pair]
+        reqs.append(MultiplyRequest(rid=rid, a=a, b=b, semiring=sr.get(semiring), mask=mask,
+                                    mask_id=mask_id))
+    keys = {req.rid: matrix_signature(req, grid, cfg) for req in reqs}
+    refused = {rid for rid, _, _, no in stream if no}
+    first_of = {}
+    for rid, *_ in stream:
+        if rid not in refused:
+            first_of.setdefault(keys[rid], rid)
+    want = {"hits": len(stream) - len(refused) - len(first_of), "misses": len(first_of),
+            "refused": len(refused), "served": len(stream) - len(refused)}
+
+    eng = SpgemmEngine(grid, cfg)
+    sigs, flops, peak_in_use = {}, {}, [0]
+    real_dispatch, real_admit = eng._dispatch, eng._admit
+
+    def dispatch(act, bi):
+        if act.req.rid not in sigs:
+            sigs[act.req.rid] = (act.nb, act.caps, act.sel_cap, act.kb, act.hc, act.mask_cap,
+                                 act.A.cap, act.B.cap)
+            flops[act.req.rid] = act.plan.total_flops
+        return real_dispatch(act, bi)
+
+    def admit():
+        real_admit()
+        peak_in_use[0] = max(peak_in_use[0], eng.in_use)
+
+    eng._dispatch, eng._admit = dispatch, admit
+    counters = counted_kernels()
+    for w in counters.values():
+        w.launches = 0
+    torch.cuda.synchronize(grid.device)
+    base = torch.cuda.memory_allocated(grid.device)
+    torch.cuda.reset_peak_memory_stats(grid.device)
+    t0 = time.perf_counter()
+    for req in reqs:
+        eng.submit(req)
+    eng.run_to_completion()
+    torch.cuda.synchronize(grid.device)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(grid.device)
+    launches = {name: w.launches for name, w in counters.items()}
+
+    stats = dict(eng.stats)
+    if {k: stats[k] for k in want} != want or stats["deferred"] < least_deferred:
+        raise AssertionError(f"{label}: stats {stats}, expected {want} and at least "
+                             f"{least_deferred} deferred")
+    spec = {rid: (pair, semiring) for rid, pair, semiring, _ in stream}
+    first_bits, errs, dispatches, lines, sums = {}, [0.0], {}, [], {}
+    pairs_of = {}
+    for rid, pair, _, _ in stream:
+        if rid not in refused:
+            pairs_of.setdefault(keys[rid], []).append((rid, pair))
+    for r in eng.done:
+        pair, semiring = spec[r.rid]
+        lines.append(f"  rid {r.rid} {pair} {semiring}: {r.status}, b={r.num_batches}, price "
+                     f"{r.price_bytes} B, retries {r.report.retries} (selection "
+                     f"{r.report.sel_retries}), splits {r.splits}, cached {r.plan_cached}, "
+                     f"deferred {r.was_deferred}, latency {r.latency_ms:.1f} ms"
+                     + (f", {r.reason}" if r.reason else ""))
+        if r.rid in refused:
+            if r.status != "refused" or r.rid in sigs:
+                raise AssertionError(f"{label}: rid {r.rid} must be refused with no dispatch: "
+                                     f"{r.status}, dispatched {r.rid in sigs}")
+            continue
+        if r.status != "ok":
+            raise AssertionError(f"{label}: rid {r.rid} {r.status}: {r.reason}")
+        path = eng.plan_cache[keys[r.rid]].local_path
+        if path == "binned" and semiring != "plus_times":
+            path = "esc"  # the k-binned multiply sums only
+        dispatches[path] = dispatches.get(path, 0) + r.num_batches + r.report.retries
+        nnz = int(r.c.nnz)
+        key = r.c.rows[:nnz].long() * r.c.shape[1] + r.c.cols[:nnz].long()
+        vals = r.c.vals[:nnz]
+        sums[r.rid] = float(vals.double().sum())
+        if semiring == "min_plus":
+            ref_key, ref_val = min_plus(pair)
+            if not (torch.equal(key, ref_key)
+                    and torch.equal(vals.view(torch.int32), ref_val.view(torch.int32))):
+                raise AssertionError(f"{label}: rid {r.rid}: min_plus C differs from "
+                                     f"batched_summa3d's")
+        else:
+            ref_key, ref_val = refs(pair)
+            if key.shape != ref_key.shape or not torch.equal(key, ref_key):
+                raise AssertionError(f"{label}: rid {r.rid}: structure differs from scipy: "
+                                     f"{key.numel()} vs {ref_key.numel()} entries")
+            err = float(((vals - ref_val).abs() / ref_val.abs()).max()) if nnz else 0.0
+            if not err <= VALUE_RTOL:
+                raise AssertionError(f"{label}: rid {r.rid}: max rel err {err} against scipy")
+            errs.append(err)
+        if path in ("esc", "binned"):
+            first = first_bits.setdefault((pair, semiring), (r.rid, key, vals))
+            if not (torch.equal(first[1], key)
+                    and torch.equal(first[2].view(torch.int32), vals.view(torch.int32))):
+                raise AssertionError(f"{label}: rid {r.rid} repeats rid {first[0]} with other bits")
+        miss = first_of[keys[r.rid]]
+        before = [p for rid, p in pairs_of[keys[r.rid]] if rid <= r.rid]
+        miss_retries = eng.done[[x.rid for x in eng.done].index(miss)].report.retries
+        if r.plan_cached and set(before) == {pair} and not miss_retries:
+            if sigs[r.rid] != sigs[miss]:
+                raise AssertionError(f"{label}: hit rid {r.rid} dispatched at {sigs[r.rid]}, its "
+                                     f"miss rid {miss} at {sigs[miss]}")
+    ok = [r for r in eng.done if r.status == "ok"]
+    lat = np.array([r.latency_ms for r in ok])
+    hit = [r.latency_ms for r in ok if r.plan_cached]
+    miss = [r.latency_ms for r in ok if not r.plan_cached]
+    rec = {
+        "stats": stats, "keys": repr([keys[r.rid] for r in eng.done]),
+        "results": [(r.rid, r.status, r.plan_cached, r.was_deferred, r.splits, r.num_batches,
+                     r.price_bytes, r.report.retries) for r in eng.done],
+        "sums": sums, "wall": wall, "peak": peak, "base": base, "peak_in_use": peak_in_use[0],
+        "budget": cfg.per_process_memory, "launches": launches, "dispatches": dispatches,
+        "max_rel_err": max(errs), "p50": float(np.percentile(lat, 50)),
+        "p99": float(np.percentile(lat, 99)), "requests_per_s": len(ok) / wall,
+        "products_per_s": sum(flops.values()) / wall,
+        "hit_ms": float(np.mean(hit)) if hit else None,
+        "miss_ms": float(np.mean(miss)) if miss else None,
+    }
+    summary = (f"{label}: {stats}; wall {wall:.2f} s, {rec['requests_per_s']:.3f} requests/s, "
+               f"{rec['products_per_s']:.4g} partial products/s; latency p50 {rec['p50']:.1f} "
+               f"ms, p99 {rec['p99']:.1f} ms; mean hit {rec['hit_ms']} ms against miss "
+               f"{rec['miss_ms']} ms; peak {peak / 2**30:.3f} GiB ({base / 2**30:.3f} before) "
+               f"against budget {cfg.per_process_memory / 2**30:.3f} GiB and admitted prices "
+               f"{peak_in_use[0] / 2**30:.3f} GiB at most; launches {launches}, batch "
+               f"dispatches by path {dispatches}; max rel err {rec['max_rel_err']:.3g}")
+    if verbose:
+        log(summary)
+        for line in lines:
+            log(line)
+    return rec
+
+
+def _csr(x):
+    import scipy.sparse as sps
+
+    from repro_torch.core import convert
+
+    r, c, v = convert.triplets(x)
+    return sps.csr_matrix((v, (r, c)), shape=x.shape)
+
+
+_PRODUCTS = {}
+
+
+def _products_init(parts):
+    _PRODUCTS.update(parts)
+
+
+def _product_task(name):
+    return _product(*_PRODUCTS[name])
+
+
+def _product(a, b, mask):
+    """scipy's a @ b (⊙ mask's structure) of CSR matrices: (row-major keys,
+    values)."""
+    p = a @ b
+    if mask is not None:
+        p = p.multiply(mask != 0)
+    p = p.tocsr()
+    p.sort_indices()
+    rows = np.repeat(np.arange(p.shape[0], dtype=np.int64), np.diff(p.indptr))
+    return rows * p.shape[1] + p.indices.astype(np.int64), np.asarray(p.data, np.float32)
+
+
+class ScipyProducts:
+    """scipy's products of ``ops`` (pair -> (a, b, mask, mask_id)), each
+    as (row-major keys, values), computed in a pool of worker processes
+    while the card works; ``get(pair, device)`` waits for one and moves it
+    to ``device`` once. Use as a context manager: the pool ends with it."""
+
+    def __init__(self, ops, workers=4):
+        import multiprocessing
+
+        parts = {pair: (_csr(a), _csr(b), None if m is None else _csr(m))
+                 for pair, (a, b, m, _) in ops.items()}
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            min(workers, len(parts)), initializer=_products_init, initargs=(parts,))
+        self.pending = {pair: self.pool.apply_async(_product_task, (pair,)) for pair in parts}
+        self.moved = {}
+
+    def get(self, pair, device):
+        import torch
+
+        if pair not in self.moved:
+            self.moved[pair] = tuple(torch.as_tensor(x, device=device)
+                                     for x in self.pending[pair].get())
+        return self.moved[pair]
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def scipy_product(a, b, mask=None):
+    """scipy's A @ B (⊙ the mask's structure): (row-major keys, values)."""
+    ca = _csr(a)
+    return _product(ca, ca if b is a else _csr(b), None if mask is None else _csr(mask))
+
+
+def scipy_refs(ops, device):
+    """``serve_run``'s ``refs`` computed here, once a pair: scipy's product
+    of ``ops[pair]`` on ``device``."""
+    import torch
+
+    done = {}
+
+    def refs(pair):
+        if pair not in done:
+            done[pair] = tuple(torch.as_tensor(x, device=device)
+                               for x in scipy_product(*ops[pair][:3]))
+        return done[pair]
+
+    return refs
+
+
+def esc_mix(grid, a0, novel, label, refs, verbose=True):
+    """13a's mix on ``grid`` on the ESC engine of ``serve_budget``: with 6
+    novel operand pairs (``novel``: pair -> ops entry), 16 requests (8
+    repeats of A0·A0, the 6 novel products, a min_plus A0 ⊗ A0 and one
+    request no split fits, ``refused_operand``); with one, 6 requests (3
+    repeats). ``refs`` gives scipy's products (``serve_run``). Returns
+    ``serve_run``'s record with the budget search's b, price and budget."""
+    t0 = time.perf_counter()
+    cfg, b0, price, low = serve_budget(a0, grid, SERVE_LEAST_B)
+    t_budget = time.perf_counter() - t0
+    big, need = refused_operand(a0.shape[0], grid, cfg.per_process_memory)
+    t_refused = time.perf_counter() - t0 - t_budget
+    ops = {"A0": (a0, a0, None, None), "refused": (big, big, None, None), **novel}
+    names = list(novel)
+    if len(names) == 6:
+        order = ["A0", "A0", "A0", names[0], "A0", names[1], "min", "A0", names[2], names[3],
+                 "A0", "refused", names[4], "A0", names[5], "A0"]
+    else:
+        order = ["A0", "A0", names[0], "min", "refused", "A0"]
+    stream = [(rid, "A0" if p == "min" else p, "min_plus" if p == "min" else "plus_times",
+               p == "refused") for rid, p in enumerate(order)]
+    if verbose:
+        log(f"{label}: budget {cfg.per_process_memory} B = 2.5 x the price {price} B of A0·A0 "
+            f"at b={b0}, the plan's b at {low} B (the least budget for b >= {SERVE_LEAST_B}; "
+            f"{t_budget:.1f} s); seed floor b={b0}; refused operand: {int(big.nnz)} entries, "
+            f"{need} B of per-process inputs ({t_refused:.1f} s)")
+    mp = {}
+
+    def min_plus(pair):
+        if pair not in mp:
+            mp[pair] = min_plus_reference(ops[pair][0], grid, cfg.per_process_memory, "esc")
+        return mp[pair]
+
+    t0 = time.perf_counter()
+    rec = serve_run(label, grid, cfg, stream, ops, refs, least_deferred=1, min_plus=min_plus,
+                    verbose=verbose)
+    del big, ops
+    rec.update(b0=b0, price=price, low=low, refused_inputs=need, budget_s=t_budget,
+               refused_s=t_refused, check_s=time.perf_counter() - t0 - rec["wall"])
+    if verbose:
+        log(f"{label}: set-up {t_budget + t_refused:.1f} s, checks {rec['check_s']:.1f} s")
+    return rec
+
+
+def serve_phase(grid, tri16):
+    """Phase 13 (one card): 13a the ESC engine (``esc_mix`` of 16 at n =
+    2^18), 13b the hash engine (seed floor b = 64: 4 repeats of A0·A0, 2
+    novel products and 2 masked triangle-count products L·U ⊙ L of R-MAT
+    scale 16 whose C sums to phase 10's count ``tri16``), 13c the
+    reference's default ServeConfig ("auto") at n = 2^14 with phase 3c's
+    budget (4 repeats, 4 novel). scipy's products are computed in a pool
+    of worker processes while the card works. Every engine's launch
+    counts are set to 0 just before its run and read just after; the hash
+    engine must launch the fused kernel once a batch dispatch and the
+    one-chunk kernel never, the auto engine the binned kernel once a
+    k-binned batch dispatch, the ESC engine the segment reduction at least
+    once a batch dispatch. Returns each engine's record."""
+    import torch
+
+    from repro_torch.core import gen
+    from repro_torch.core.specs import PlanFloors
+    from repro_torch.serve import ServeConfig
+    from repro_torch.sparse_apps import graph_algorithms as ga
+
+    t_phase = time.perf_counter()
+    out = {}
+    a0, a14 = protein(N_MCL), protein(N_DEFAULT)
+    novel = {}
+    for m, seed in SERVE_NOVEL:
+        x = protein(m, seed)
+        novel[f"n{m}s{seed}"] = (x, x, None, None)
+    g = gen.symmetrized(gen.rmat(TRI_PINNED_SCALE, edge_factor=16, seed=5, device="cpu"))
+    L, U = ga._strict_parts(g)
+    small = {}
+    for seed in range(1, 5):
+        x = protein(N_DEFAULT, seed)
+        small[f"n{N_DEFAULT}s{seed}"] = (x, x, None, None)
+    ops = {"A0": (a0, a0, None, None), "tri16": (L, U, L, "tri16"),
+           "A14": (a14, a14, None, None), **novel, **small}
+    log(f"13: A0 n={N_MCL}, nnz {int(a0.nnz)} ({int(a0.nnz) / N_MCL:.2f}/row); operands "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    with ScipyProducts(ops) as ref:
+        refs = lambda pair: ref.get(pair, grid.device)  # noqa: E731
+        rec = out["13a"] = esc_mix(grid, a0, novel, "13a ESC engine n=2^18", refs)
+        if rec["launches"]["segment_reduce"] < rec["dispatches"].get("esc", 0):
+            raise AssertionError(f"13a: segment reduction launched {rec['launches']} for "
+                                 f"{rec['dispatches']} batch dispatches")
+        torch.cuda.empty_cache()
+
+        hashed = [SERVE_NOVEL[0], SERVE_NOVEL[3]]  # 13a's first novel of each size
+        order = ["A0", "A0", "n{}s{}".format(*hashed[0]), "tri16", "A0",
+                 "n{}s{}".format(*hashed[1]), "tri16", "A0"]
+        cfg = ServeConfig(per_process_memory=rec["budget"], local_path="hash",
+                          seed_floors=PlanFloors(num_batches=SERVE_HASH_FLOOR))
+        rec = out["13b"] = serve_run(
+            "13b hash engine n=2^18", grid, cfg,
+            [(rid, p, "plus_times", False) for rid, p in enumerate(order)], ops, refs)
+        counts = [int(round(rec["sums"][rid])) for rid, p in enumerate(order) if p == "tri16"]
+        if counts != [tri16] * 2:
+            raise AssertionError(f"13b: the masked products sum to {counts}, phase 10 counted "
+                                 f"{tri16}")
+        if (rec["launches"]["hash"] != rec["dispatches"].get("hash", -1)
+                or rec["launches"]["hash_chunk"] != 0 or set(rec["dispatches"]) != {"hash"}):
+            raise AssertionError(f"13b: the fused hash kernel must launch once a batch "
+                                 f"dispatch ({rec['dispatches']}) and the one-chunk kernel "
+                                 f"never: {rec['launches']}")
+        log(f"13b: the masked products hold {counts[0]} triangles, as phase 10 counted")
+        torch.cuda.empty_cache()
+
+        order = [p for pair in small for p in ("A14", pair)]
+        cfg = ServeConfig(per_process_memory=48 * int(a14.nnz))
+        rec = out["13c"] = serve_run(
+            "13c default ServeConfig n=2^14", grid, cfg,
+            [(rid, p, "plus_times", False) for rid, p in enumerate(order)], ops, refs)
+        if (rec["launches"]["binned"] != rec["dispatches"].get("binned", -1)
+                or rec["launches"]["hash"] != 0):
+            raise AssertionError(f"13c: the binned kernel must launch once a k-binned batch "
+                                 f"dispatch ({rec['dispatches']}): {rec['launches']}")
+        del ops, refs
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def phase13_rank(grid, p13):
+    """Phase 13 on one rank of the distributed phase (see ``grid_rank``):
+    13a's mix of 6 at n = ``p13["n"]`` on each of ``p13["shapes"]``; with
+    ``p13["mcl_host"]``, ``mcl_iterate_host`` (phase 8's sparse n = 2^14
+    loop) on the launcher's grid, which rank 0 first runs on a 1x1x1 grid
+    of its own card and holds the grid's loop against (nnz within
+    NNZ_RTOL, identical partitions)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.grid import make_grid
+    from repro_torch.sparse_apps import mcl
+
+    out = {"serve": {}}
+    n = p13["n"]
+    a0, x = protein(n), protein(n // 2, 1)
+    novel = {f"n{n // 2}s1": (x, x, None, None)}
+    refs = scipy_refs({"A0": (a0, a0, None, None), **novel}, grid.device)
+    for shape in p13["shapes"]:
+        g = grid if shape == (grid.pr, grid.pc, grid.l) else make_grid(*shape, device=grid.device)
+        dist.barrier()
+        tag = "x".join(map(str, shape))
+        out["serve"][shape] = esc_mix(g, a0, novel, f"9 serve {tag} n={n} rank {g.rank}", refs,
+                                      verbose=g.rank == 0)
+        torch.cuda.empty_cache()
+    if p13["mcl_host"]:
+        a, cfg = mcl_dense_input()
+        cfg = dataclasses.replace(cfg, path="sparse")
+        one = None
+        if grid.rank == 0:
+            one = run_mcl(mcl.mcl_iterate_host, a, make_grid(1, 1, 1, device=grid.device), cfg,
+                          "mcl host loop n=2^14, one card (rank 0)")
+        dist.barrier()
+        fin, hist, wall, peak, launches = run_mcl(
+            mcl.mcl_iterate_host, a, grid, cfg,
+            f"mcl host loop n=2^14, grid {grid.pr}x{grid.pc}x{grid.l}, rank {grid.rank}")
+        out["mcl_host"] = {"wall": wall, "nnz": [h["nnz"] for h in hist],
+                           "batches": [h["batches"] for h in hist]}
+        if one is not None:
+            compare_loops("mcl host loop n=2^14, grid vs one card", hist, one[1],
+                          partition(fin, N_DEFAULT), partition(one[0], N_DEFAULT))
+            out["mcl_host"]["one_card_wall"] = one[2]
+    return out
+
+
+def log_phase13_ranks(ranks, backend):
+    """The serving records of every rank of the distributed phase: every
+    rank's stats, results and cache keys must equal rank 0's. Returns the
+    segment reduction's launches per rank by shape."""
+    launches = {}
+    for shape in ranks[0]["p13"]["serve"]:
+        tag = "x".join(map(str, shape))
+        per = [x["p13"]["serve"][shape] for x in ranks]
+        for field in ("stats", "results", "keys"):
+            if any(x[field] != per[0][field] for x in per):
+                raise AssertionError(f"9 serve {tag}: the ranks' {field} differ: "
+                                     f"{[x[field] for x in per]}")
+        launches[tag] = [x["launches"]["segment_reduce"] for x in per]
+        log(f"9 serve {tag} ({backend}): every rank the same stats {per[0]['stats']}, results "
+            f"and cache keys; walls {[round(x['wall'], 3) for x in per]} s, p50 "
+            f"{[round(x['p50'], 1) for x in per]} ms, p99 {[round(x['p99'], 1) for x in per]} "
+            f"ms, peaks {[round(x['peak'] / 2**30, 3) for x in per]} GiB against budget "
+            f"{per[0]['budget'] / 2**30:.3f} GiB (admitted at most "
+            f"{per[0]['peak_in_use'] / 2**30:.3f}), segment launches per rank {launches[tag]}")
+    if "mcl_host" in ranks[0]["p13"]:
+        per = [x["p13"]["mcl_host"] for x in ranks]
+        if any(x["nnz"] != per[0]["nnz"] for x in per):
+            raise AssertionError(f"mcl host loop on the grid: the ranks' trajectories differ: "
+                                 f"{[x['nnz'] for x in per]}")
+        log(f"mcl host loop n=2^14 ({backend}): every rank nnz {per[0]['nnz']}, b "
+            f"{per[0]['batches']}; walls {[round(x['wall'], 2) for x in per]} s, one card "
+            f"{per[0]['one_card_wall']:.2f} s")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -3363,7 +3953,8 @@ def main() -> int:
     if chips == 4:  # 9 and 11's grid parts alone: one rank per card over NCCL
         try:
             grid_phase(N_FULL, "nccl", with_mcl=True, tri_scale=TRI_SCALE, p11={
-                "dense_n": N_DENSE_NCCL, "dense": (((2, 2, 1), 1),), "place_count": None})
+                "dense_n": N_DENSE_NCCL, "dense": (((2, 2, 1), 1),), "place_count": None},
+                p13={"n": N_MCL, "shapes": (GRID_SHAPES[0],), "mcl_host": False})
             picks, full_b = background.result()
         finally:
             background.close()
@@ -3520,10 +4111,14 @@ def main() -> int:
     p12 = durability_phase(grid, ref7, ref8)
     del ref7, ref8
     torch.cuda.empty_cache()
-    # 9. four ranks on this card over gloo, with 11's grid parts
-    grid_launches, dense_grid = grid_phase(
+    # 13. serving: the plan-cached engine on this card
+    p13 = serve_phase(grid, masked["tri16"])
+    torch.cuda.empty_cache()
+    # 9. four ranks on this card over gloo, with 11's and 13's grid parts
+    grid_launches, dense_grid, serve_grid = grid_phase(
         N_GRID, "gloo", with_mcl=False, tri_scale=TRI_PINNED_SCALE,
-        p11={"dense_n": N_DENSE, "dense": DENSE_GLOO, "place_count": masked["tri16"]})
+        p11={"dense_n": N_DENSE, "dense": DENSE_GLOO, "place_count": masked["tri16"]},
+        p13={"n": N_SERVE_GLOO, "shapes": GRID_SHAPES, "mcl_host": True})
     per_rank = lambda label: {tag: n for (tag, lab), n in grid_launches.items() if lab == label}
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
@@ -3614,6 +4209,12 @@ def main() -> int:
     row["segment_reduce"]["phase12_min_max_abs_err"] = p12c["min_hold_err"]
     row["spgemm_paired_binned"]["phase12_launches"] = {
         "mcl_n2^14_resumed_child": p12["12b"]["launches"]}
+    # phase 13's launches, each engine's counts set to 0 just before its run
+    for name, counter in (("hash_insert", "hash"), ("segment_reduce", "segment_reduce"),
+                          ("spgemm_paired_binned", "binned")):
+        row[name]["phase13_launches"] = {
+            engine: p13[engine]["launches"][counter] for engine in ("13a", "13b", "13c")}
+    row["segment_reduce"]["phase9_serve_n2^16_launches_per_rank"] = serve_grid
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -65,7 +65,7 @@ from ..core.summa3d import _squeeze_tile, reassemble_operands
 from ..core.symbolic import rup8, rup_pow2
 from ..runtime.resilient import ResilientConfig, run_iterated
 from . import mcl as _mcl
-from .mcl import _to_host
+from .mcl import _sparse_batch_to_global, _to_host
 
 Tensor = torch.Tensor
 
@@ -137,17 +137,6 @@ def _shrink_batch(d: DistSparse, max_tile_nnz: int) -> DistSparse:
         return d
     return dataclasses.replace(d, rows=d.rows[..., :new_cap], cols=d.cols[..., :new_cap],
                                vals=d.vals[..., :new_cap])
-
-
-def _sparse_batch_to_global(c: DistSparse, col_map: np.ndarray, grid: Grid):
-    """One sparse C batch of the whole grid in global coordinates on the
-    host: every rank's tile is gathered, so every rank gets all of it."""
-    tm, _ = c.tile_shape
-    R, C, V, N = (_to_host(grid.gather_grid(x[0, 0, 0]))
-                  for x in (c.rows, c.cols, c.vals, c.nnz))
-    valid = np.arange(R.shape[-1])[None, None, None, :] < N[..., None]
-    i, j, kk, s = np.nonzero(valid)
-    return i * tm + R[i, j, kk, s], col_map[j, kk, C[i, j, kk, s]], V[i, j, kk, s]
 
 
 # ---------------------------------------------------------------------------

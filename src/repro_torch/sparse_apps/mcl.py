@@ -667,10 +667,9 @@ def mcl_iterate_host(
     normalization / pruning / chaos all run on the host (float64), and the
     iterate round-trips host<->device each iteration. The multiply is the
     device loop's: same path, same ``cfg.local_path``, same forced batch
-    count. It runs on a one-process grid."""
-    if grid.p > 1:
-        raise NotImplementedError(
-            f"the host-loop reference runs on a 1x1x1 grid, not {grid.pr}x{grid.pc}x{grid.l}")
+    count. On a grid of more than one process every batch is gathered over
+    the grid, so every rank holds the whole iterate, runs the same host
+    prune and scatters the same next iterate."""
     n = a.shape[0]
     cur = a
     history: List[dict] = []
@@ -684,9 +683,10 @@ def mcl_iterate_host(
         def consumer(bi, c_batch, col_map):
             # pull this batch to the host, prune there, discard the product
             if cfg.path == "dense":
-                pieces.append(_extract_dense_batch(_to_host(c_batch), col_map))
+                tiles = _to_host(grid.gather_grid(c_batch[0, 0, 0]))
+                pieces.append(_extract_dense_batch(tiles, col_map))
             else:
-                pieces.append(_sparse_batch_to_global(c_batch, col_map))
+                pieces.append(_sparse_batch_to_global(c_batch, col_map, grid))
 
         res = batched_summa3d(
             A, B, grid,
@@ -722,14 +722,12 @@ def mcl_iterate_host(
     return cur, history
 
 
-def _sparse_batch_to_global(c: DistSparse, col_map: np.ndarray):
-    """Host-side reassembly of one sparse C batch into global coordinates
-    (vectorized over the tile grid)."""
+def _sparse_batch_to_global(c: DistSparse, col_map: np.ndarray, grid: Grid):
+    """One sparse C batch of the whole grid in global coordinates on the
+    host: every rank's tile is gathered, so every rank gets all of it."""
     tm, _ = c.tile_shape
-    R = _to_host(c.rows)
-    C = _to_host(c.cols)
-    V = _to_host(c.vals)
-    N = _to_host(c.nnz)
+    R, C, V, N = (_to_host(grid.gather_grid(x[0, 0, 0]))
+                  for x in (c.rows, c.cols, c.vals, c.nnz))
     valid = np.arange(R.shape[-1])[None, None, None, :] < N[..., None]
     i, j, kk, s = np.nonzero(valid)
     return i * tm + R[i, j, kk, s], col_map[j, kk, C[i, j, kk, s]], V[i, j, kk, s]

@@ -707,3 +707,44 @@ def test_dense_step_schedules_on_four_gloo_ranks_of_one_card(cuda_device, tmp_pa
         # rank (i, j) gets the tile of (i + 1, j) along the rows, (i, j + 1) along the columns
         np.testing.assert_array_equal(out["shift"][0], np.full(5, (i + 1) % 2 * 2 + j))
         np.testing.assert_array_equal(out["shift"][1], np.full(5, i * 2 + (j + 1) % 2))
+
+
+@pytest.mark.parametrize("local_path", ["esc", "binned", "hash"])
+def test_serving_engine_on_the_card_matches_cpu(cuda_device, local_path):
+    """The serving engine on the card against the same engine on the CPU
+    (the kernels' plain versions), over one stream with repeats and a
+    novel pair: the same ordered results, stats and cache keys, the same
+    structure and values within rtol 1e-5; the binned kernel launches once
+    a batch, the fused hash kernel once a batch and the one-chunk kernel
+    never."""
+    from repro_torch.core import gen, grid as tgrid
+    from repro_torch.serve import MultiplyRequest, ServeConfig, SpgemmEngine
+
+    pairs = [(gen.erdos_renyi(512, 8.0, seed=s, device="cpu"),
+              gen.erdos_renyi(512, 8.0, seed=s + 1, device="cpu")) for s in (70, 72)]
+    stream = [(0, 0), (1, 0), (2, 1), (3, 0)]
+    engines, launches = {}, {}
+    for dev in ("cpu", cuda_device):
+        counted = (tbinned.spgemm_paired_binned_cuda, thash.hash_expand_insert_cuda,
+                   thash.hash_insert_cuda)
+        before = [w.launches for w in counted]
+        eng = SpgemmEngine(tgrid.make_grid(1, 1, 1, device=dev),
+                           ServeConfig(per_process_memory=1 << 20, local_path=local_path))
+        for rid, p in stream:
+            eng.submit(MultiplyRequest(rid=rid, a=pairs[p][0], b=pairs[p][1]))
+        eng.run_to_completion()
+        engines[str(dev)] = eng
+        launches[str(dev)] = [w.launches - n for w, n in zip(counted, before)]
+    cpu, card = engines["cpu"], engines[str(cuda_device)]
+    assert card.stats == cpu.stats and list(card.plan_cache) == list(cpu.plan_cache)
+    assert card.stats["hits"] == 2
+    batches = sum(r.num_batches + r.report.retries for r in card.done)
+    assert launches["cpu"] == [0, 0, 0]
+    want = {"esc": [0, 0, 0], "binned": [batches, 0, 0], "hash": [0, batches, 0]}[local_path]
+    assert launches[str(cuda_device)] == want
+    for t, c in zip(card.done, cpu.done):
+        assert (t.rid, t.status, t.plan_cached, t.num_batches, t.price_bytes) == (
+            c.rid, c.status, c.plan_cached, c.num_batches, c.price_bytes)
+        assert t.c.rows.is_cuda
+        assert torch.equal(t.c.rows.cpu(), c.c.rows) and torch.equal(t.c.cols.cpu(), c.c.cols)
+        torch.testing.assert_close(t.c.vals.cpu(), c.c.vals, rtol=1e-5, atol=1e-6)

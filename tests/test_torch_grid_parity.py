@@ -9,7 +9,13 @@ the ESC product. Cases: ``scatter_to_grid`` tiles and the
 multiplies, on a starved ESC plan that takes the retry ladder, on the dense
 path and on the max_times semiring, and under a budget that blocks the
 ladder, so batches are replanned finer and merged back; on 2×2×1 the
-sparse and dense MCL device loops; the masked multiply (paper §V-B) at b ∈
+sparse and dense MCL device loops and the sparse and dense host loops
+(``mcl_iterate_host``: every batch gathered to every rank, pruned there
+in f64); the serving engine on the mixed repeat/novel stream of
+``tests/app_cases.py::case_serve_mixed_traffic`` (n = 64) on 2×2×1 and
+1×1×4, where every rank must return the reference's ordered results,
+``stats``, plan-cache keys, dispatch signatures and whole products; the
+masked multiply (paper §V-B) at b ∈
 {2, 4} × strict/complement × ESC/hash/k-binned on 2×2×1 and 1×1×4, where the
 batch's mask slice is gathered along the fiber with per-layer column
 offsets; and the masked triangle count (its plan and its count) and the
@@ -66,9 +72,19 @@ PRODUCTS = {
     "dense": ("dense", "auto", "plus_times", 1.3, 1.0),
     "max_times": ("sparse", "esc", "max_times", 1.3, 1.0),
 }
-# MCL loops on 2x2x1: name -> (path, forced batches, top-k)
-MCL_LOOPS = {"sparse_b4_k64": ("sparse", 4, 64), "sparse_b4_k4": ("sparse", 4, 4),
-             "dense_b4_k64": ("dense", 4, 64)}
+# MCL loops on 2x2x1: name -> (loop, path, forced batches, top-k)
+MCL_LOOPS = {"sparse_b4_k64": ("mcl_iterate", "sparse", 4, 64),
+             "sparse_b4_k4": ("mcl_iterate", "sparse", 4, 4),
+             "dense_b4_k64": ("mcl_iterate", "dense", 4, 64),
+             "host_sparse_b4_k64": ("mcl_iterate_host", "sparse", 4, 64),
+             "host_dense_b4_k64": ("mcl_iterate_host", "dense", 4, 64)}
+# the serving stream (case_serve_mixed_traffic): (a, b) seeds of the repeated
+# pair and of the four novel pairs, then the rids of each submitted phase
+SERVE_N = 64
+SERVE_SEEDS = ((40, 41),) + tuple((500 + 2 * i, 501 + 2 * i) for i in range(4))
+SERVE_PHASES = (((0, 0),), tuple((rid, 0) for rid in (1, 2, 3, 4)),
+                tuple((rid, 1 + i) for i, rid in enumerate((5, 6, 7, 8))))
+SERVE_STATS = ("hits", "misses", "deferred", "refused", "splits", "served")
 # the steps outside the fused step: the dense step's schedules and the
 # sparse step's semirings (its capacities are the one-batch ESC plan's)
 SCHEDULES = ("allgather", "ring")
@@ -135,7 +151,57 @@ def _inputs():
     i, j = np.nonzero(np.triu(d @ d.T >= 2, k=1))
     extra = np.random.default_rng(3).integers(0, 32, (2, 40))
     inp["cand_r"], inp["cand_c"] = np.concatenate([i, extra[0]]), np.concatenate([j, extra[1]])
+    for p, seeds in enumerate(SERVE_SEEDS):
+        for side, seed in zip("ab", seeds):
+            x = gen.erdos_renyi(SERVE_N, 4.0, seed=seed, device="cpu")
+            nnz = int(x.nnz)
+            for f in ("rows", "cols", "vals"):
+                inp[f"serve/{p}/{side}/{f}"] = getattr(x, f)[:nnz].numpy()
     return inp
+
+
+def _serve_stream(pkg, grid, inp):
+    """The serving stream through ``pkg``'s engine: per rid its result
+    fields, dispatch signature and whole product; ``stats`` and the
+    plan-cache keys."""
+    def operand(p, side):
+        return pkg.coo(*(inp[f"serve/{p}/{side}/{f}"] for f in ("rows", "cols", "vals")),
+                       (SERVE_N, SERVE_N))
+
+    pairs = [(operand(p, "a"), operand(p, "b")) for p in range(len(SERVE_SEEDS))]
+    eng = pkg.serve.SpgemmEngine(grid, pkg.serve.ServeConfig(per_process_memory=1 << 24))
+    sigs, real = {}, eng._dispatch
+
+    def spy(act, bi):
+        caps = lambda x: list(dataclasses.astuple(x)) if x is not None else []  # noqa: E731
+        sigs.setdefault(act.req.rid, [act.nb, *caps(act.caps), act.sel_cap, *caps(act.kb),
+                                      *caps(act.hc), act.mask_cap, act.A.cap, act.B.cap])
+        return real(act, bi)
+
+    eng._dispatch = spy
+    for phase in SERVE_PHASES:
+        for rid, p in phase:
+            eng.submit(pkg.serve.MultiplyRequest(rid=rid, a=pairs[p][0], b=pairs[p][1]))
+        eng.run_to_completion()
+    out = {"serve/stats": np.array([eng.stats[k] for k in SERVE_STATS]),
+           "serve/keys": np.array(repr(_plain(list(eng.plan_cache))))}
+    out["serve/results"] = np.array([
+        [r.rid, r.status == "ok", r.plan_cached, r.was_deferred, r.splits, r.num_batches,
+         r.price_bytes, r.report.retries, r.report.sel_retries] for r in eng.done], np.int64)
+    for r in eng.done:
+        nnz = int(r.c.nnz)
+        for f in ("rows", "cols", "vals"):
+            out[f"serve/c/{r.rid}/{f}"] = np.asarray(getattr(r.c, f))[:nnz]
+        out[f"serve/sig/{r.rid}"] = np.array(sigs[r.rid], np.int64)
+    return out
+
+
+def _plain(x):
+    """Nested tuples of numbers and strings as plain Python lists and
+    scalars (either package's plan-cache key)."""
+    if isinstance(x, (tuple, list)):
+        return [_plain(v) for v in x]
+    return x if x is None or isinstance(x, str) else int(x)
 
 
 def _plan_record(p):
@@ -242,12 +308,14 @@ def _run(pkg, grid, shape, inp):
     for label, cand in (("overlap", None), ("overlap_candidates", cands)):
         out[label] = np.array(pkg.ga.overlap_pairs(kmer, grid, min_shared=2, candidates=cand),
                               np.int64).reshape(-1, 3)
+    if shape != ESC_SHAPE:
+        out.update(_serve_stream(pkg, grid, inp))
     if shape == (2, 2, 1):
         m = pkg.coo(inp["mcl_r"], inp["mcl_c"], inp["mcl_v"], (N_MCL, N_MCL))
-        for name, (path, nb, k) in MCL_LOOPS.items():
+        for name, (loop, path, nb, k) in MCL_LOOPS.items():
             cfg = pkg.mcl.MCLConfig(max_iters=12, per_process_memory=1 << 24, path=path,
                                     force_num_batches=nb, max_per_col=k)
-            final, hist = pkg.mcl.mcl_iterate(m, grid, cfg)
+            final, hist = getattr(pkg.mcl, loop)(m, grid, cfg)
             out[f"mcl/{name}/final"] = pkg.dense(final)
             out[f"mcl/{name}/nnz"] = np.array([h["nnz"] for h in hist])
             out[f"mcl/{name}/batches"] = np.array([h["batches"] for h in hist])
@@ -259,6 +327,7 @@ def _run(pkg, grid, shape, inp):
 # the port's ranks (spawned; no JAX)
 # ---------------------------------------------------------------------------
 def _port_rank(grid, inp):
+    from repro_torch import serve
     from repro_torch.core import distsparse, placement, semiring, sparse, specs, summa3d
     from repro_torch.core.batched import batched_summa3d, plan_batches, probe_memory_budget
     from repro_torch.sparse_apps import graph_algorithms, mcl
@@ -276,6 +345,7 @@ def _port_rank(grid, inp):
         ExecSpec=specs.ExecSpec,
         mcl=mcl,
         ga=graph_algorithms,
+        serve=serve,
         plan=plan_batches,
         probe=probe_memory_budget,
         dense_step=summa3d.summa3d_dense_step,
@@ -293,6 +363,7 @@ def _port_rank(grid, inp):
 def _reference(inputs_path, out_path, tag):
     import jax
 
+    from repro import serve
     from repro.core import distsparse, placement, semiring, sparse, summa3d
     from repro.core.batched import batched_summa3d, plan_batches, probe_memory_budget
     from repro.core.grid import make_grid
@@ -311,6 +382,7 @@ def _reference(inputs_path, out_path, tag):
         ExecSpec=ExecSpec,
         mcl=mcl,
         ga=graph_algorithms,
+        serve=serve,
         plan=plan_batches,
         probe=probe_memory_budget,
         # the steps under jit, as the reference's driver runs them
@@ -564,6 +636,45 @@ def test_overlap_pairs_match_jax(runs, shape, case):
     np.testing.assert_array_equal(ref[f"{_tag(shape)}/{case}"], want)
     for _, out, *_ in port[shape]:
         np.testing.assert_array_equal(out[case], want)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_tag)
+def test_serve_stream_matches_jax(runs, shape):
+    """Every rank serves the reference's stream: the same ordered results
+    (rid, status, cached, deferred, splits, b, price, retries), ``stats``,
+    plan-cache keys and dispatch signatures (a hit's equal to its miss's),
+    and the whole product of every request, which is the dense oracle's."""
+    inp, ref, port = runs
+    tag = f"{_tag(shape)}/serve"
+    results = ref[f"{tag}/results"]
+    assert results[:, 1].all() and len(results) == 9
+    stats = dict(zip(SERVE_STATS, ref[f"{tag}/stats"]))
+    assert stats["hits"] >= 4 and stats["served"] == 9
+    dense = lambda p, side: _dense_from(inp, f"serve/{p}/{side}")  # noqa: E731
+    pairs = {rid: p for phase in SERVE_PHASES for rid, p in phase}
+    for coords, out, *_ in port[shape]:
+        np.testing.assert_array_equal(out["serve/results"], results)
+        np.testing.assert_array_equal(out["serve/stats"], ref[f"{tag}/stats"])
+        assert str(out["serve/keys"]) == str(ref[f"{tag}/keys"])
+        for rid, p in pairs.items():
+            np.testing.assert_array_equal(out[f"serve/sig/{rid}"], ref[f"{tag}/sig/{rid}"])
+            if p == 0:
+                np.testing.assert_array_equal(out[f"serve/sig/{rid}"], out["serve/sig/0"])
+            for f in ("rows", "cols"):
+                np.testing.assert_array_equal(out[f"serve/c/{rid}/{f}"],
+                                              ref[f"{tag}/c/{rid}/{f}"])
+            np.testing.assert_allclose(out[f"serve/c/{rid}/vals"], ref[f"{tag}/c/{rid}/vals"],
+                                       rtol=1e-5, atol=1e-6)
+            got = np.zeros((SERVE_N, SERVE_N))
+            got[out[f"serve/c/{rid}/rows"], out[f"serve/c/{rid}/cols"]] = \
+                out[f"serve/c/{rid}/vals"]
+            np.testing.assert_allclose(got, dense(p, "a") @ dense(p, "b"), rtol=1e-5, atol=1e-6)
+
+
+def _dense_from(inp, prefix):
+    d = np.zeros((SERVE_N, SERVE_N))
+    d[inp[f"{prefix}/rows"], inp[f"{prefix}/cols"]] = inp[f"{prefix}/vals"]
+    return d
 
 
 @pytest.mark.parametrize("loop", list(MCL_LOOPS))
