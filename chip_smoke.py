@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-13, one card (10 to 13 run before 9)
+    python3 chip_smoke.py            # phases 1-14, one card (14 runs after 6; 10 to 13 before 9)
     python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
@@ -41,7 +41,7 @@ Phases (any failed check raises, so the script exits non-zero):
      give the same bits. A kernel's time is the
      device time of its wrapper per call (every kernel and memset the
      wrapper puts on the card, from torch.profiler); it raises if the
-     profiler records none in 3 profiled runs of a rep. A library call's time (the yardstick) is its
+     profiler records none in 5 profiled runs of a rep. A library call's time (the yardstick) is its
      device time, measured the same way; plain times are CUDA-event times.
      A kernel's bound counts the bytes its wrapper must move on this run's
      data (inputs read once, outputs written once) against the card's
@@ -268,6 +268,37 @@ Phases (any failed check raises, so the script exits non-zero):
      against miss latency; the peak device memory against the budget and
      the most admitted at once.
 
+ 14. The LM serving path (repro_torch.models, configs, serve.ServeEngine) on
+     one card; runs after 6, before 7. Every run with the SpMM kernel's
+     count set to 0 just before and read just after; matrix products in
+     full f32 where the model is f32 (TF32 off).
+       a. every SMOKE architecture of the registry, f32, the port's seeded
+          init: forward's last position against prefill of the first 7
+          positions and one decode within rtol = atol = 2e-3 (the JAX
+          package's own check; B = 1 keeps the MoE under one capacity block,
+          so nothing is dropped), and for the two MoE models forward with
+          "spgemm" dispatch against "scatter" within 1e-4. SpMM launches
+          exactly 2 a MoE layer a model call in "spgemm" mode; "scatter"
+          none.
+       b. OLMoE-1B-7B at its published width and depth (16 layers, d_model
+          2048, 64 experts top-8, vocab 50304; 6.92e9 parameters) in bf16,
+          seeded random weights on the card: EngineConfig(max_batch=8,
+          s_max=1024), 16 requests of seeded prompts of 64-512 tokens and
+          32 new tokens each, run twice: every request gets 32 in-range
+          tokens, the two runs the same tokens, SpMM exactly 2 x 16 x (16
+          prefills + ticks) launches. Logs each run's wall, prefill
+          tokens/s and ms per decode-only tick (run 1 is the warm-up), the
+          peak memory, and a profile of one decode tick of run 2 (top ops by
+          device time, SpMM's share, the idle share against its own host
+          time).
+       c. the SpMM kernel on layer 0's MoE operands (dispatch and combine)
+          of a prefill of T = 512 tokens (A 5632 x 512, 4096 entries) and of
+          a decode tick of the 8 slots (A 512 x 8, 64 entries) against its
+          plain version within rtol 1e-5, with bf16 values and B and in f32
+          (both sum in f32), bit-identical between calls, timed as in 4
+          beside torch.sparse.mm, with its bound.
+       d. OLMoE at full width in f32, cut to 2 layers: as a.
+
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
@@ -276,7 +307,8 @@ phase 9, and the hash row the masked kernel's numbers from 10; densify,
 SpMM, hash and segment rows also hold their launches in 11, the hash,
 segment and binned rows their launches in 12 and in 13, the segment row
 its launches per rank in 9's serving, and the SpMM row its accumulate
-mode's check) and the JSON result line; with --chips 4 only
+mode's check and phase 14's MoE launches and timings) and the JSON result
+line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -318,7 +350,7 @@ MCL_BUDGET = 2 << 30  # per-process bytes: iteration 2 of the n = 2^18 run plans
 # threshold: their nnz may differ by this share per iteration, never more
 NNZ_RTOL = 1e-5
 PROFILE_MARGIN_S = 0.02  # idle time around a profiled window (see device_ms)
-PROFILE_ATTEMPTS = 3  # profiled runs of one rep before a window without device events fails
+PROFILE_ATTEMPTS = 5  # profiled runs of one rep before a window without device events fails
 SORT_CALLS = 20  # bitonic sorts per profiled window: one is ~tens of microseconds
 N_GRID = 1 << 18  # the four-rank phase on one card
 GRID_SHAPES = ((2, 2, 1), (1, 1, 4))  # the reference refuses 2x1x2 (pr == pc or l == 1)
@@ -1152,8 +1184,9 @@ def check_repeats(label, fn, a, grid, cfg, first):
 
 def profile_top(label, fn, rows=8, kernel=None):
     """One profiled call of ``fn``: its device time and the ops that take
-    the most of it (logged). Returns the device time (us) of each launch
-    of the kernel named ``kernel``, in launch order, or None without one."""
+    the most of it (logged). Returns (the window's device ms, the device
+    time (us) of each launch of the kernel named ``kernel``, in launch
+    order, or None without one)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1174,7 +1207,8 @@ def profile_top(label, fn, rows=8, kernel=None):
     log(f"{label}: {total:.1f} ms device time; top PyTorch ops (ms, calls):")
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:rows]:
         log(f"  {e.self_device_time_total / 1e3:10.2f}  {e.count:4d}  {e.key[:90]}")
-    return None if launches is None else [us for _, us in launches]
+    times = None if launches is None else [us for _, us in launches]
+    return total, times
 
 
 def profile_segment_reduce(label, fn):
@@ -1188,7 +1222,7 @@ def profile_segment_reduce(label, fn):
     kern = S.segment_reduce_cuda
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         kern.launches = 0
-        times, calls = capture_segment_inputs(
+        (_, times), calls = capture_segment_inputs(
             lambda: profile_top(label, fn, kernel="segment_reduce_kernel"))
         if len(calls) != kern.launches:
             raise AssertionError(f"{label}: {kern.launches} segment-reduce launches, "
@@ -3907,6 +3941,364 @@ def log_phase13_ranks(ranks, backend):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM serving path — models, configs, the continuous-batching engine
+# ---------------------------------------------------------------------------
+LM_RTOL = 2e-3  # forward's last position vs prefill + one decode (the JAX package's own check)
+LM_DISPATCH_RTOL = 1e-4  # "spgemm" vs "scatter" MoE dispatch (the JAX package's own check)
+LM_SEED = 0
+OLMOE = "olmoe-1b-7b"
+OLMOE_REQUESTS = 16
+OLMOE_PROMPT = (64, 512)  # prompt lengths drawn from this range, both ends included
+OLMOE_NEW = 32
+OLMOE_BATCH, OLMOE_S_MAX = 8, 1024
+OLMOE_F32_LAYERS = 2  # 14d: OLMoE at full width in f32, cut to this depth
+
+
+def lm_model(cfg, seed):
+    """The port's seeded init of ``cfg`` on the card."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return transformer.init_params(cfg, g, "cuda")
+
+
+def lm_inputs(cfg, shape, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.input_mode == "tokens":
+        return torch.randint(0, cfg.vocab, shape, generator=g, device="cuda")
+    return torch.randn(shape + (cfg.d_model,), generator=g, device="cuda")
+
+
+def check_lm(label, cfg, model, seed):
+    """14a/14d: forward's last position against prefill of the first 7
+    positions and one decode (B = 1: 8 tokens at most, one capacity block
+    of 8, so no MoE assignment is dropped in any of the three calls) within
+    LM_RTOL; for an MoE model, forward on a (2, 16) batch with "spgemm"
+    dispatch against "scatter" within LM_DISPATCH_RTOL. The SpMM kernel's
+    count, set to 0 just before, must read 2 a MoE layer a model call in
+    "spgemm" mode after. Returns (consistency err, dispatch err or None,
+    spgemm model calls, SpMM launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.models import transformer as tfm
+
+    spmm_cuda.launches = 0
+    seq = lm_inputs(cfg, (1, 8), seed)
+    full, _ = tfm.forward(cfg, model, seq)
+    _, cache = tfm.prefill(cfg, model, seq[:, :7], s_max=16)
+    dec, _ = tfm.decode_step(cfg, model, cache, seq[:, 7:], 7)
+    calls = 3
+    want = full[:, -1, :cfg.vocab]
+    err = float((dec - want).abs().max())
+    if not torch.allclose(dec, want, rtol=LM_RTOL, atol=LM_RTOL):
+        raise AssertionError(f"{label}: prefill + decode differs from forward, max abs err {err}")
+    derr = None
+    if cfg.moe:
+        x = lm_inputs(cfg, (2, 16), seed + 1)
+        spgemm, _ = tfm.forward(cfg, model, x)
+        calls += 1
+        torch.cuda.synchronize()
+        before = spmm_cuda.launches
+        scatter_cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, dispatch_mode="scatter"))
+        scatter, _ = tfm.forward(scatter_cfg, model, x)
+        torch.cuda.synchronize()
+        if spmm_cuda.launches != before:
+            raise AssertionError(f"{label}: the scatter dispatch launched the SpMM kernel")
+        spgemm, scatter = spgemm[..., :cfg.vocab], scatter[..., :cfg.vocab]
+        derr = float((spgemm - scatter).abs().max())
+        if not torch.allclose(spgemm, scatter, rtol=LM_DISPATCH_RTOL, atol=LM_DISPATCH_RTOL):
+            raise AssertionError(f"{label}: spgemm dispatch differs from scatter, max abs err "
+                                 f"{derr}")
+    torch.cuda.synchronize()
+    launches = spmm_cuda.launches
+    want_launches = 2 * cfg.n_layers * calls if cfg.moe else 0
+    if launches != want_launches:
+        raise AssertionError(f"{label}: {launches} SpMM launches, want {want_launches}")
+    return err, derr, calls, launches
+
+
+def lm_smoke_phase():
+    """14a: every SMOKE architecture on the card, in f32, the port's seeded init."""
+    from repro_torch.configs import ARCHS, get_config
+
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        cfg = get_config(arch, smoke=True)
+        err, derr, calls, launches = check_lm(f"14a {arch}", cfg, lm_model(cfg, LM_SEED + i),
+                                              LM_SEED + i)
+        out[arch] = {"max_abs_err": err, "dispatch_max_abs_err": derr, "launches": launches}
+        log(f"14a {arch} ({cfg.family}{', moe' if cfg.moe else ''}): prefill + decode vs "
+            f"forward max abs err {err:.3g}"
+            + ("" if derr is None else f"; spgemm vs scatter {derr:.3g}, {launches} SpMM "
+               f"launches = 2 x {cfg.n_layers} layers x {calls} calls"))
+    return out
+
+
+def olmoe_prompts(cfg):
+    rng = np.random.default_rng(LM_SEED)
+    lengths = rng.integers(OLMOE_PROMPT[0], OLMOE_PROMPT[1] + 1, OLMOE_REQUESTS)
+    return [rng.integers(0, cfg.vocab, int(s)).astype(np.int32) for s in lengths]
+
+
+def olmoe_engine(cfg, model, prompts):
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, model, EngineConfig(max_batch=OLMOE_BATCH, s_max=OLMOE_S_MAX))
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=OLMOE_NEW))
+    return eng
+
+
+def serve_olmoe(cfg, model, prompts, profile):
+    """One run of the stream through the engine, driven tick by tick: the
+    SpMM count set to 0 just before and read just after; the host time of
+    every prefill (each ends in a read of its token) and of every tick
+    without an admission (each ends in the logits' copy to the host). With
+    ``profile``, one such tick from the fifth on is profiled (another, up to
+    PROFILE_ATTEMPTS, if the profiler records no SpMM launch), with its own
+    host time inside the profiled window (the profiler's own host cost
+    included); it is left out of ``tick_ms``."""
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+
+    eng = olmoe_engine(cfg, model, prompts)
+    prefill_s = []
+    inner = eng._prefill_into_slot
+
+    def timed(slot, req):
+        t = time.perf_counter()
+        inner(slot, req)
+        prefill_s.append(time.perf_counter() - t)
+
+    eng._prefill_into_slot = timed
+    torch.cuda.synchronize()
+    spmm_cuda.launches = 0
+    ticks, tick_ms, prof, attempts = 0, [], None, 0
+    t0 = time.perf_counter()
+    while eng.queue or eng.active:
+        admits = bool(eng.queue) and bool(eng._free_slots())
+        if profile and prof is None and not admits and ticks >= 4:
+            attempts += 1
+            host_ms = []
+
+            def timed_step():
+                t = time.perf_counter()
+                eng.step()
+                host_ms.append((time.perf_counter() - t) * 1e3)
+
+            total, times = profile_top("14b decode tick (8 slots)", timed_step, rows=12,
+                                       kernel="spmm_tile_kernel")
+            if times:
+                prof = {"device_ms": total, "host_ms": host_ms[0],
+                        "idle_share": 1 - total / host_ms[0], "spmm_ms": sum(times) / 1e3,
+                        "spmm_launches": len(times), "spmm_share": sum(times) / 1e3 / total}
+            elif attempts == PROFILE_ATTEMPTS:
+                raise RuntimeError(f"14b: the profiler recorded no SpMM launch in {attempts} "
+                                   f"decode ticks")
+        else:
+            t = time.perf_counter()
+            eng.step()
+            if not admits:
+                tick_ms.append((time.perf_counter() - t) * 1e3)
+        ticks += 1
+    wall = time.perf_counter() - t0
+    return {"done": eng.done, "ticks": ticks, "launches": spmm_cuda.launches, "wall": wall,
+            "prefill_s": prefill_s, "tick_ms": tick_ms, "profile": prof}
+
+
+def captured_spmm(fn, count=2):
+    """The first ``count`` (A, B) operands ``core.local_spgemm.spmm`` gets
+    while ``fn()`` runs (the MoE calls it through the module): layer 0's
+    dispatch and combine."""
+    from repro_torch.core import local_spgemm
+
+    seen, inner = [], local_spgemm.spmm
+
+    def spy(a, b, *args, **kw):
+        if len(seen) < count:
+            seen.append((a, b.clone()))
+        return inner(a, b, *args, **kw)
+
+    local_spgemm.spmm = spy
+    try:
+        fn()
+    finally:
+        local_spgemm.spmm = inner
+    return seen
+
+
+def olmoe_phase():
+    """14b: OLMoE-1B-7B at its published width and depth, bf16, served
+    twice; then the operands 14c holds the kernel on."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import param_count
+
+    cfg = get_config(OLMOE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm_model(cfg, LM_SEED)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"14b {OLMOE}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads x "
+        f"{cfg.hdim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, d_expert "
+        f"{cfg.moe.d_expert}, vocab {cfg.vocab}; {param_count(model)} parameters, {weights} B "
+        f"in {cfg.dtype}, seeded init on the card {time.perf_counter() - t0:.2f} s")
+    prompts = olmoe_prompts(cfg)
+    n_tok = sum(len(p) for p in prompts)
+    runs = []
+    for run in range(2):
+        r = serve_olmoe(cfg, model, prompts, profile=run == 1)
+        want = 2 * cfg.n_layers * (len(prompts) + r["ticks"])
+        if r["launches"] != want:
+            raise AssertionError(f"14b run {run + 1}: {r['launches']} SpMM launches, want "
+                                 f"2 x {cfg.n_layers} x ({len(prompts)} prefills + "
+                                 f"{r['ticks']} ticks) = {want}")
+        tokens = {req.rid: list(req.out_tokens) for req in r["done"]}
+        if sorted(tokens) != list(range(len(prompts))) or any(
+                len(v) != OLMOE_NEW or not all(0 <= x < cfg.vocab for x in v)
+                for v in tokens.values()):
+            raise AssertionError(f"14b run {run + 1}: every request must get {OLMOE_NEW} "
+                                 f"in-range tokens: {tokens}")
+        r["tokens"] = tokens
+        runs.append(r)
+        log(f"14b run {run + 1}: {len(prompts)} requests served in {r['wall']:.3f} s, "
+            f"{r['ticks']} ticks, {r['launches']} SpMM launches = 2 x {cfg.n_layers} x "
+            f"({len(prompts)} + {r['ticks']}); prefill {n_tok} prompt tokens in "
+            f"{sum(r['prefill_s']):.3f} s ({n_tok / sum(r['prefill_s']):.1f} tokens/s); "
+            f"{len(r['tick_ms'])} decode-only ticks, {np.mean(r['tick_ms']):.3f} ms mean, "
+            f"{np.median(r['tick_ms']):.3f} ms median")
+    if runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError("14b: the two runs of the stream give other tokens")
+    peak = torch.cuda.max_memory_allocated() - base
+    prof = runs[1]["profile"]
+    kv = 2 * cfg.n_layers * OLMOE_BATCH * OLMOE_S_MAX * cfg.kv_heads * cfg.hdim * 2
+    log(f"14b: both runs the same {len(prompts) * OLMOE_NEW} tokens; peak {peak / 2**30:.3f} GiB "
+        f"above the {base / 2**30:.3f} GiB held before (weights {weights / 2**30:.3f} GiB, KV "
+        f"cache {kv / 2**30:.3f} GiB); profiled decode tick {prof['device_ms']:.3f} ms device "
+        f"time, SpMM {prof['spmm_ms']:.4f} ms in {prof['spmm_launches']} launches "
+        f"({100 * prof['spmm_share']:.2f} %) against its own {prof['host_ms']:.3f} ms on the "
+        f"host under the profiler ({100 * prof['idle_share']:.2f} % idle; against run 2's "
+        f"median unprofiled tick {np.median(runs[1]['tick_ms']):.3f} ms: "
+        f"{100 * (1 - prof['device_ms'] / np.median(runs[1]['tick_ms'])):.2f} %)")
+
+    # 14c's operands: layer 0's dispatch and combine in a prefill of T = 512
+    # tokens and in a decode tick of all 8 slots after the stream's first 8
+    # prefills
+    long_prompt = np.random.default_rng(LM_SEED + 1).integers(
+        0, cfg.vocab, OLMOE_PROMPT[1]).astype(np.int32)
+    prefill_ops = captured_spmm(lambda: tfm.prefill(
+        cfg, model, torch.as_tensor(long_prompt, device="cuda")[None], s_max=OLMOE_S_MAX))
+    eng = olmoe_engine(cfg, model, prompts[:OLMOE_BATCH])
+    eng.step()
+    decode_ops = captured_spmm(eng.step)
+    # run 1 is the warm-up; run 2's figures are the stream's (its wall
+    # holds the profiled tick)
+    stats = {"ticks": runs[1]["ticks"], "launches": [r["launches"] for r in runs],
+             "peak_gib": peak / 2**30, "weights_gib": weights / 2**30, "profile": prof}
+    for key, r in (("warmup", runs[0]), ("warm", runs[1])):
+        stats[key] = {"wall_s": r["wall"], "prefill_tokens_per_s": n_tok / sum(r["prefill_s"]),
+                      "decode_tick_ms_mean": float(np.mean(r["tick_ms"])),
+                      "decode_tick_ms_median": float(np.median(r["tick_ms"]))}
+    del model, eng
+    return stats, {"prefill_T512": prefill_ops, "decode_T8": decode_ops}
+
+
+def check_moe_spmm(label, a, b):
+    """14c: the SpMM kernel on one MoE operand pair (A the dispatch or
+    combine matrix, B the tokens or the expert outputs) against its plain
+    version within rtol KERNEL_RTOL, with bf16 values and B and in f32
+    (both sum in f32), bit-identical between calls; timed as in 4 beside
+    torch.sparse.mm (CSR x dense, f32). The bound counts the live entries,
+    the rows of B they name and C, each once."""
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda, spmm_ref
+
+    m, k = a.shape
+    n = b.shape[1]
+    valid = a.valid_mask()
+    rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
+    vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
+    live = (rows < m) & (a.cols < k)
+    nnz = int(live.sum())
+    b_rows = int(torch.unique(a.cols[live]).numel())
+    out = {"m": m, "k": k, "n": n, "entries": a.cap, "live": nnz}
+    for dtype in (torch.bfloat16, torch.float32):
+        args = (rows, a.cols, vals.to(dtype), b.to(dtype).contiguous(), m)
+        got, again, want = spmm_cuda(*args), spmm_cuda(*args), spmm_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
+            raise AssertionError(f"14c {label} {dtype}: kernel differs from plain, max abs err "
+                                 f"{err}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"14c {label} {dtype}: two calls differ")
+        ms = device_ms(lambda: spmm_cuda(*args), 1, "spmm_tile_kernel", 5)
+        elt = args[3].element_size()
+        bound, by = bound_ms(nnz * (8 + elt) + b_rows * n * elt + 4 * m * n, 2 * nnz * n)
+        plain = cuda_ms(lambda: spmm_ref(*args), 3)
+        key = "bf16" if dtype == torch.bfloat16 else "f32"
+        out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                    "max_abs_err": err}
+        log(f"14c {label} {key}: A {m} x {k} ({nnz} live of {a.cap} entries, {b_rows} rows of "
+            f"B), n {n}: {ms:.6f} ms device time (plain {plain:.4f}), bound {bound:.6f} ms "
+            f"({by}), {100 * bound / ms:.2f} % of bound, max abs err {err:.3g}, two calls "
+            f"bit-identical")
+    b32 = b.float().contiguous()
+    a_csr = torch.sparse_coo_tensor(
+        torch.stack([rows[live].long(), a.cols[live].long()]), vals[live].float(), (m, k),
+        check_invariants=False,
+    ).coalesce().to_sparse_csr()
+    out["library_ms"] = library_device_ms(f"14c {label} torch.sparse.mm",
+                                          lambda: torch.sparse.mm(a_csr, b32))
+    return out
+
+
+def lm_phase():
+    """Phase 14: the LM serving path (14a-d). Returns its records."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    # full f32 products: the checks' tolerances leave no room for TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    smoke = lm_smoke_phase()
+    log(f"14a: {time.perf_counter() - t_phase:.1f} s")
+    olmoe, ops = olmoe_phase()
+    torch.cuda.empty_cache()
+    spmm = {}
+    for where, (dispatch, combine) in ops.items():
+        spmm[f"dispatch_{where}"] = check_moe_spmm(f"dispatch {where}", *dispatch)
+        spmm[f"combine_{where}"] = check_moe_spmm(f"combine {where}", *combine)
+    del ops
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=OLMOE_F32_LAYERS, dtype="float32")
+    err, derr, _, launches = check_lm("14d", cfg, lm_model(cfg, LM_SEED + 100), LM_SEED + 100)
+    log(f"14d {OLMOE} at full width in f32, {OLMOE_F32_LAYERS} layers: prefill + decode vs "
+        f"forward max abs err {err:.3g}, spgemm vs scatter {derr:.3g}, {launches} SpMM launches")
+    torch.cuda.empty_cache()
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"smoke": smoke, "olmoe": olmoe, "spmm": spmm,
+            "f32": {"max_abs_err": err, "dispatch_max_abs_err": derr, "launches": launches}}
+
+
 def main() -> int:
     import argparse
 
@@ -4084,6 +4476,9 @@ def main() -> int:
     acc = check_spmm_accumulate(gen.protein_similarity_like(
         N_DENSE, blocks=N_DENSE // 64, intra_p=0.12, seed=0), N_DENSE)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+    # 14. the LM serving path (after 6: it profiles a decode tick, and the
+    # profiler has recorded no device event late in long runs)
+    p14 = lm_phase()
     # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
     seg_mcl, ref7 = mcl_sparse_phase(grid)
@@ -4215,6 +4610,21 @@ def main() -> int:
         row[name]["phase13_launches"] = {
             engine: p13[engine]["launches"][counter] for engine in ("13a", "13b", "13c")}
     row["segment_reduce"]["phase9_serve_n2^16_launches_per_rank"] = serve_grid
+    # phase 14's MoE dispatch and combine, each run's count set to 0 just before it
+    spmm14 = p14["spmm"]
+    row["spmm"]["moe_launches"] = {
+        "14a_smoke_f32": {a: r["launches"] for a, r in p14["smoke"].items() if r["launches"]},
+        "14b_olmoe_stream_runs": p14["olmoe"]["launches"],
+        "14d_olmoe_f32_2_layers": p14["f32"]["launches"]}
+    for op in ("dispatch", "combine"):
+        row["spmm"][f"moe_{op}_ms"] = {
+            f"{where}_{dt}": spmm14[f"{op}_{where}"][dt]["ms"]
+            for where in ("prefill_T512", "decode_T8") for dt in ("bf16", "f32")}
+    for field in ("bound_ms", "bound_by", "plain_ms", "max_abs_err"):
+        row["spmm"][f"moe_{field}"] = {f"{key}_{dt}": rec[dt][field]
+                                      for key, rec in spmm14.items() for dt in ("bf16", "f32")}
+    row["spmm"]["moe_library_ms"] = {key: rec["library_ms"] for key, rec in spmm14.items()}
+    row["spmm"]["moe_decode_tick_profile"] = p14["olmoe"]["profile"]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,10 @@ Laid out module for module like the JAX package ``repro``:
              loop (checkpoint/resume, fault injection, SIGTERM)
   sparse_apps/  applications on the batched multiply: Markov clustering,
              triangle counting, overlap pairs and all-pairs shortest paths
+  serve/     the plan-cached SpGEMM engine and the continuous-batching LM
+             engine
+  models/    the decoder LMs (attention, MLP, MoE with its dispatch on the
+             SpMM kernel, Mamba2) and configs/ their architectures
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU. Importing the package builds nothing.

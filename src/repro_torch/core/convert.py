@@ -13,14 +13,17 @@
     ``MCLLoopState``: the A/B operands, iteration, chaos, plan floors and
     pinned binned and local-path decisions) as the fields of the port's ``MCLLoopState``, so
     both loops can go on from the same iterate.
+  * ``lm_params_from_reference`` — the JAX package's LM parameter tree (as
+    numpy arrays) as the port's model, its stacked layers unstacked.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..models import transformer
 from .distsparse import DistSparse
 from .sparse import SparseCOO
 from .specs import PlanFloors
@@ -89,3 +92,45 @@ def iterate_from_reference(state, device="cuda") -> dict:
         "binned_arg": state.binned_arg,
         "lp_arg": state.lp_arg,
     }
+
+
+def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any],
+                             device="cuda") -> transformer.ParamTree:
+    """The port's model (``models.transformer``) holding the JAX package's
+    parameters ``params`` (its nested dict, leaves as numpy arrays or
+    anything ``np.asarray`` takes) for ``cfg``.
+
+    The leading layer axis of every ``layers`` leaf is unstacked into one
+    entry a layer; ``shared_block``, ``moe.shared``, a tied head (no
+    ``lm_head``) and an ``"embeds"`` model (no ``embed``) carry over as they
+    are. Leaves with ndim > 1 (per layer) go to the compute dtype, the rest
+    stay f32, as the JAX package casts them inside each layer. Raises
+    ``ValueError`` on a leaf the model has no place for, a leaf it needs that
+    is missing, or a shape that differs."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(path, node):
+        if isinstance(node, dict):
+            for name, child in node.items():
+                walk(path + (str(name),), child)
+        elif path[0] == "layers":
+            arr = np.asarray(node)
+            for i in range(arr.shape[0]):
+                flat[".".join(("layers", str(i)) + path[1:])] = arr[i]
+        else:
+            flat[".".join(path)] = np.asarray(node)
+
+    walk((), params)
+    model = transformer.init_params(cfg, None, "meta")
+    want = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    missing, extra = sorted(want.keys() - flat.keys()), sorted(flat.keys() - want.keys())
+    shapes = [f"{k}: {flat[k].shape} for {want[k]}" for k in sorted(want.keys() & flat.keys())
+              if tuple(flat[k].shape) != want[k]]
+    if missing or extra or shapes:
+        raise ValueError(f"{cfg.arch_id}: parameters missing {missing}, not consumed "
+                         f"{extra}, of another shape {shapes}")
+    cd = cfg.compute_dtype
+    state = {k: torch.as_tensor(np.array(v, dtype=np.float32, copy=True)).to(
+        device=device, dtype=cd if v.ndim > 1 else torch.float32) for k, v in flat.items()}
+    model.load_state_dict(state, strict=True, assign=True)
+    return model

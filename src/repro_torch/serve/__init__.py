@@ -1,9 +1,5 @@
-"""Serving: the plan-cached SpGEMM engine (multiply-as-a-service).
-
-The JAX package's ``repro.serve`` also exports ``EngineConfig``, ``Request``
-and ``ServeEngine``, its transformer server; they come to the port with the
-LM scaffold.
-"""
+"""Serving: the plan-cached SpGEMM engine (multiply-as-a-service) and the
+continuous-batching LM engine."""
 from .engine import (  # noqa: F401
     MultiplyRequest,
     MultiplyResult,
@@ -12,3 +8,4 @@ from .engine import (  # noqa: F401
     SpgemmEngine,
     matrix_signature,
 )
+from .lm_engine import EngineConfig, Request, ServeEngine  # noqa: F401

@@ -748,3 +748,61 @@ def test_serving_engine_on_the_card_matches_cpu(cuda_device, local_path):
         assert t.c.rows.is_cuda
         assert torch.equal(t.c.rows.cpu(), c.c.rows) and torch.equal(t.c.cols.cpu(), c.c.cols)
         torch.testing.assert_close(t.c.vals.cpu(), c.c.vals, rtol=1e-5, atol=1e-6)
+
+
+def _lm_on(cfg, device, seed=0):
+    from repro_torch.models import transformer as tfm
+
+    # the same seeded CPU init on both devices, so the two runs share weights
+    return tfm.init_params(cfg, torch.Generator().manual_seed(seed), "cpu").to(device)
+
+
+@pytest.mark.parametrize("dispatch", ["spgemm", "scatter"])
+def test_moe_layer_on_the_card_matches_cpu(cuda_device, dispatch):
+    """The MoE layer's dispatch and combine: two SpMM launches in "spgemm"
+    mode, none in "scatter"; the result within rtol 1e-4 of the CPU's
+    (both sum in f32, in another order; no TF32)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as tmoe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    mcfg = dataclasses.replace(cfg.moe, dispatch_mode=dispatch)
+    x = torch.randn(2, 24, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    want, want_aux = tmoe.moe_layer(_lm_on(cfg, "cpu").layers[0].moe, x, mcfg)
+    params = _lm_on(cfg, cuda_device).layers[0].moe
+    before = spmm_cuda.launches
+    got, aux = tmoe.moe_layer(params, x.to(cuda_device), mcfg, mode="dense_ep")
+    torch.cuda.synchronize()
+    assert spmm_cuda.launches - before == (2 if dispatch == "spgemm" else 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+
+
+def test_lm_engine_tick_on_the_card_matches_cpu(cuda_device):
+    """One tick of the LM engine (three prefills, one decode of the whole
+    batch) on an MoE model: 2 SpMM launches a layer a model call, and the
+    CPU engine's tokens."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, s).astype(np.int32) for s in (5, 9, 3, 7)]
+    tokens = {}
+    for dev in ("cpu", cuda_device):
+        eng = ServeEngine(cfg, _lm_on(cfg, dev), EngineConfig(max_batch=3, s_max=16),
+                          device=dev)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=p, max_new_tokens=4))
+        before = spmm_cuda.launches
+        assert eng.step() == 3
+        launched = spmm_cuda.launches - before
+        tokens[str(dev)] = {slot: list(r.out_tokens) for slot, r in eng.active.items()}
+    assert launched == 2 * cfg.n_layers * (3 + 1)
+    assert tokens[str(cuda_device)] == tokens["cpu"]
