@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-14, one card (14 runs after 6; 10 to 13 before 9)
+    python3 chip_smoke.py            # phases 1-15, one card (14, 15 run after 6; 10 to 13 before 9)
     python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
@@ -298,6 +298,40 @@ Phases (any failed check raises, so the script exits non-zero):
           (both sum in f32), bit-identical between calls, timed as in 4
           beside torch.sparse.mm, with its bound.
        d. OLMoE at full width in f32, cut to 2 layers: as a.
+ 15. Training (repro_torch.optim, data, train, runtime.run_training,
+     runtime.hierarchical, launch.train) on one card; runs after 14. The
+     MoE's dispatch and combine go through the differentiable SpMM
+     (kernels.spmm_kernel.SpmmFunction): the kernel forward, in the remat
+     recompute, and for dB = Aᵀ·G in the backward; dvals is plain PyTorch.
+       a. every MoE SMOKE architecture, f32, seeded: one step's gradients
+          through the kernel (remat off, so the SpMM operands are this
+          run's tensors: 4 launches a layer) against the same step with
+          the plain SpMM forced on the card (dX, dY, dvals, the router's
+          and the experts' weights) within rtol 1e-4 / atol 1e-6;
+          run_training (remat on) with a failure injected at step 5
+          (checkpoints every 3 steps) ends at step 8 with one restart and
+          the uninterrupted run's losses; CrossClusterDP with 2 clusters
+          for 4 steps: each step's summed gradient, for every parameter,
+          the mean of what the clusters sent (gradient plus residual
+          before minus residual after) bit for bit, wire_bytes the
+          reference's formula, the replicas bit-identical; then
+          ``python -m repro_torch.launch.train --arch olmoe-1b-7b --smoke``
+          (in this process) takes 3 steps. Each run's SpMM count set to 0
+          just before it and read just after: 6 a layer a step with remat
+          (2 forward, 2 recompute, 2 dB).
+       b. OLMoE-1B-7B at its published width, depth cut to 4 of 16 layers
+          (f32 masters, grads and AdamW's two moments are 16 B a
+          parameter: 103.1 GiB at 16 layers, 28.08 GiB at 4), bf16
+          compute, remat on, AdamW lr 1e-3 warmup 2, batch 8 x 2048 tokens
+          from the port's Prefetcher: 2 warm-up and 8 timed steps through
+          build_train_step, then one profiled step. Every loss finite, the
+          mean of the last 3 below the mean of the first 3, SpMM 24
+          launches a step (4 layers x (2 + 2 + 2)). Logs tokens/s, ms a
+          step, the peak memory, the profiled step's top ops and the SpMM's
+          share. Then layer 0's dispatch and combine at T = 16384, forward
+          and their dB (the swapped entries, G seeded), through the 14c
+          check (kernel vs plain, bit-identical repeats, device time,
+          bound, torch.sparse.mm), and dvals' plain time with its bound.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
@@ -307,7 +341,8 @@ phase 9, and the hash row the masked kernel's numbers from 10; densify,
 SpMM, hash and segment rows also hold their launches in 11, the hash,
 segment and binned rows their launches in 12 and in 13, the segment row
 its launches per rank in 9's serving, and the SpMM row its accumulate
-mode's check and phase 14's MoE launches and timings) and the JSON result
+mode's check, phase 14's MoE launches and timings, and phase 15's training
+launches, forward and backward, and timings) and the JSON result
 line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
@@ -4218,9 +4253,10 @@ def olmoe_phase():
     return stats, {"prefill_T512": prefill_ops, "decode_T8": decode_ops}
 
 
-def check_moe_spmm(label, a, b):
-    """14c: the SpMM kernel on one MoE operand pair (A the dispatch or
-    combine matrix, B the tokens or the expert outputs) against its plain
+def check_moe_spmm(label, a, b, phase="14c"):
+    """14c (and 15b, ``phase``): the SpMM kernel on one MoE operand pair (A
+    the dispatch or combine matrix or a transpose, B the tokens, the expert
+    outputs or a gradient) against its plain
     version within rtol KERNEL_RTOL, with bf16 values and B and in f32
     (both sum in f32), bit-identical between calls; timed as in 4 beside
     torch.sparse.mm (CSR x dense, f32). The bound counts the live entries,
@@ -4244,10 +4280,10 @@ def check_moe_spmm(label, a, b):
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=1e-6):
-            raise AssertionError(f"14c {label} {dtype}: kernel differs from plain, max abs err "
+            raise AssertionError(f"{phase} {label} {dtype}: kernel differs from plain, max abs err "
                                  f"{err}")
         if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
-            raise AssertionError(f"14c {label} {dtype}: two calls differ")
+            raise AssertionError(f"{phase} {label} {dtype}: two calls differ")
         ms = device_ms(lambda: spmm_cuda(*args), 1, "spmm_tile_kernel", 5)
         elt = args[3].element_size()
         bound, by = bound_ms(nnz * (8 + elt) + b_rows * n * elt + 4 * m * n, 2 * nnz * n)
@@ -4255,7 +4291,7 @@ def check_moe_spmm(label, a, b):
         key = "bf16" if dtype == torch.bfloat16 else "f32"
         out[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                     "max_abs_err": err}
-        log(f"14c {label} {key}: A {m} x {k} ({nnz} live of {a.cap} entries, {b_rows} rows of "
+        log(f"{phase} {label} {key}: A {m} x {k} ({nnz} live of {a.cap} entries, {b_rows} rows of "
             f"B), n {n}: {ms:.6f} ms device time (plain {plain:.4f}), bound {bound:.6f} ms "
             f"({by}), {100 * bound / ms:.2f} % of bound, max abs err {err:.3g}, two calls "
             f"bit-identical")
@@ -4264,7 +4300,7 @@ def check_moe_spmm(label, a, b):
         torch.stack([rows[live].long(), a.cols[live].long()]), vals[live].float(), (m, k),
         check_invariants=False,
     ).coalesce().to_sparse_csr()
-    out["library_ms"] = library_device_ms(f"14c {label} torch.sparse.mm",
+    out["library_ms"] = library_device_ms(f"{phase} {label} torch.sparse.mm",
                                           lambda: torch.sparse.mm(a_csr, b32))
     return out
 
@@ -4297,6 +4333,469 @@ def lm_phase():
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return {"smoke": smoke, "olmoe": olmoe, "spmm": spmm,
             "f32": {"max_abs_err": err, "dispatch_max_abs_err": derr, "launches": launches}}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: training — the differentiable SpMM, the train step, the
+# restartable loop, hierarchical data parallelism, the launcher
+# ---------------------------------------------------------------------------
+TRAIN_SEED = 0
+TRAIN_GRAD_TOL = dict(rtol=1e-4, atol=1e-6)  # kernel vs plain SpMM: f32 sums in other orders
+TRAIN_LOOP_STEPS, TRAIN_FAIL_STEP, TRAIN_CKPT_EVERY = 8, 5, 3
+TRAIN_DP_STEPS = 4
+OLMOE_TRAIN_LAYERS = 4  # of 16: f32 masters + grads + 2 moments = 16 B a parameter
+OLMOE_TRAIN_BATCH, OLMOE_TRAIN_SEQ = 8, 2048
+OLMOE_TRAIN_WARMUP, OLMOE_TRAIN_TIMED = 2, 8
+OLMOE_TRAIN_OPT = dict(lr=1e-3, warmup_steps=2)
+
+
+def moe_archs():
+    from repro_torch.configs import ARCHS, get_config
+
+    return [a for a in ARCHS if get_config(a, smoke=True).moe]
+
+
+def train_batch(cfg, step, batch=4, seq=16):
+    from repro_torch.data import DataConfig, synthetic_batch
+
+    return synthetic_batch(DataConfig(seq_len=seq, global_batch=batch, vocab=cfg.vocab,
+                                      seed=TRAIN_SEED), step, "cuda")
+
+
+def train_grads(cfg, model, batch, plain):
+    """One step's loss gradients (``cfg`` with remat off), through the SpMM
+    kernel or, with ``plain``, its plain version forced on the card; with
+    the SpMM operands' gradients: (named grads, [(dB, dvals or None) a call,
+    in call order: layer by layer, dispatch then combine])."""
+    from repro_torch.core import local_spgemm
+    from repro_torch.kernels import spmm_kernel
+    from repro_torch.models import transformer as tfm
+
+    seen, inner, kernel = [], local_spgemm.spmm, spmm_kernel.spmm_cuda
+
+    def spy(a, b, *args, **kw):
+        for x in (a.vals, b):
+            if x.requires_grad:
+                x.retain_grad()
+        seen.append((a.vals, b))
+        return inner(a, b, *args, **kw)
+
+    leaves = dict(model.named_parameters())
+    for p in leaves.values():
+        p.requires_grad_(True)
+        p.grad = None
+    local_spgemm.spmm = spy
+    if plain:
+        spmm_kernel.spmm_cuda = lambda rows, cols, vals, b, m, out=None: spmm_kernel.spmm_ref(
+            rows, cols, vals, b, m, out=out)
+    try:
+        tfm.lm_loss(cfg, model, batch["inputs"], batch["targets"]).backward()
+    finally:
+        local_spgemm.spmm, spmm_kernel.spmm_cuda = inner, kernel
+    grads = {k: p.grad for k, p in leaves.items()}
+    for p in leaves.values():
+        p.grad = None
+    return grads, [(b.grad, v.grad) for v, b in seen]
+
+
+def train_grads_phase(arch, cfg, model):
+    """15a: kernel against forced plain, on one step's gradients."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+
+    cfg = dataclasses.replace(cfg, remat=False)
+    batch = train_batch(cfg, 0)
+    spmm_cuda.launches = 0
+    got, ops = train_grads(cfg, model, batch, plain=False)
+    torch.cuda.synchronize()
+    launches = spmm_cuda.launches
+    if launches != 4 * cfg.n_layers:
+        raise AssertionError(f"15a {arch}: {launches} SpMM launches, want 4 x {cfg.n_layers} "
+                             f"(dispatch and combine forward, their dB)")
+    want, ops_plain = train_grads(cfg, model, batch, plain=True)
+    if spmm_cuda.launches != launches:
+        raise AssertionError(f"15a {arch}: the forced plain run launched the kernel")
+    errs = {}
+
+    def hold(label, g, w):
+        if g is None or w is None:
+            raise AssertionError(f"15a {arch} {label}: no gradient")
+        err = float((g - w).abs().max())
+        if not torch.allclose(g, w, **TRAIN_GRAD_TOL):
+            raise AssertionError(f"15a {arch} {label}: kernel vs plain max abs err {err}")
+        errs[label] = max(errs.get(label, 0.0), err)
+
+    for i, ((db, dv), (db_p, dv_p)) in enumerate(zip(ops, ops_plain)):
+        combine = i % 2 == 1
+        hold("dY" if combine else "dX", db, db_p)
+        if combine:
+            hold("dvals", dv, dv_p)
+    for name, g in got.items():
+        if ".moe." in name:
+            hold("router" if name.endswith("router") else "experts", g, want[name])
+    return {"launches": launches, "max_abs_err": errs}
+
+
+def train_loop_phase(arch, cfg, root):
+    """15a: run_training with a failure injected against the uninterrupted
+    loop; returns (the uninterrupted run's result, the injected run's, the
+    uninterrupted run's SpMM launches)."""
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import FailureInjector, RuntimeConfig, run_training
+    from repro_torch.train import TrainConfig, build_train_step
+
+    step_fn = build_train_step(cfg, TrainConfig(optimizer=adamw.AdamWConfig(**OLMOE_TRAIN_OPT)),
+                               "cuda")
+
+    def make_state():
+        model = lm_master(cfg, TRAIN_SEED)
+        return {"params": model, "opt": adamw.init_opt_state(model)}
+
+    def step(state, batch):
+        p, o, m = step_fn(state["params"], state["opt"], batch)
+        return {"params": p, "opt": o}, m
+
+    runs, launches = {}, {}
+    for label, injector in (("plain", None), ("injected", FailureInjector(
+            fail_steps=(TRAIN_FAIL_STEP,)))):
+        torch.cuda.synchronize()
+        spmm_cuda.launches = 0
+        runs[label] = run_training(
+            steps=TRAIN_LOOP_STEPS, make_state=make_state, step_fn=step,
+            batch_fn=lambda s: train_batch(cfg, s), injector=injector,
+            rc=RuntimeConfig(ckpt_dir=os.path.join(root, f"{arch}_{label}"),
+                             ckpt_every=TRAIN_CKPT_EVERY))
+        torch.cuda.synchronize()
+        launches[label] = spmm_cuda.launches
+    plain, res = runs["plain"], runs["injected"]
+    want = 6 * cfg.n_layers * TRAIN_LOOP_STEPS
+    if launches["plain"] != want:
+        raise AssertionError(f"15a {arch} loop: {launches['plain']} SpMM launches, want 6 x "
+                             f"{cfg.n_layers} x {TRAIN_LOOP_STEPS}")
+    if (res.final_step, res.restarts, res.rollbacks) != (TRAIN_LOOP_STEPS, 1, 0):
+        raise AssertionError(f"15a {arch} loop: ended at {res.final_step} with {res.restarts} "
+                             f"restarts, {res.rollbacks} rollbacks")
+    if not np.all(np.isfinite(plain.losses)) or len(res.losses) != TRAIN_LOOP_STEPS or \
+            not np.allclose(res.losses, plain.losses, rtol=1e-6, atol=0):
+        raise AssertionError(f"15a {arch} loop: losses {res.losses} against the uninterrupted "
+                             f"run's {plain.losses}")
+    return plain, res, launches["plain"]
+
+
+def lm_master(cfg, seed):
+    """The port's seeded init of ``cfg`` on the card, f32 masters."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return transformer.init_params(cfg, g, "cuda", master=True)
+
+
+def dp_exchange_check(dp, states, batches):
+    """One ``dp.step`` with its exchange held to what the clusters sent:
+    the summed gradient that every cluster applies must be, for every
+    parameter, the mean over clusters of the gradient plus the residual
+    before minus the residual after (the (values, indices) a compressed
+    leaf sent, all of a dense one), bit for bit (each sent entry is the
+    same f32 sum as in ``compress_grad``, the others cancel exactly). And
+    ``wire_bytes`` must be the reference's formula over the stacked leaves:
+    8 B a kept entry of a leaf of at least ``min_size``, 4 B an entry of a
+    smaller one, to each of the other clusters. Returns (states, metrics,
+    the number of parameters held)."""
+    import torch
+
+    from repro_torch.optim import compress
+    from repro_torch.runtime import hierarchical
+
+    grads, g_sums = [], []
+    vg, apply = hierarchical.value_and_grad, hierarchical.adamw.apply_updates
+
+    def spy_vg(*args):
+        loss, g = vg(*args)
+        grads.append(g)
+        return loss, g
+
+    def spy_apply(params, g, *args):
+        g_sums.append(g)
+        return apply(params, g, *args)
+
+    old = [st.err for st in states]
+    hierarchical.value_and_grad, hierarchical.adamw.apply_updates = spy_vg, spy_apply
+    try:
+        states, m = dp.step(states, batches)
+    finally:
+        hierarchical.value_and_grad, hierarchical.adamw.apply_updates = vg, apply
+    n = dp.num_clusters
+    if len(grads) != n or len(g_sums) != n or any(g is not g_sums[0] for g in g_sums):
+        raise AssertionError(f"DP: {len(grads)} gradients, {len(g_sums)} updates, not one "
+                             f"summed gradient for {n} clusters")
+    g_sum = g_sums[0]
+    if sorted(g_sum) != sorted(grads[0]):
+        raise AssertionError("DP: the summed gradient lacks parameters")
+    for name, got in g_sum.items():
+        sent = [grads[c][name].float() + old[c][name] - states[c].err[name] for c in range(n)]
+        want = sum(sent) / n
+        if not torch.equal(got, want):
+            raise AssertionError(f"DP: the exchange of {name} is not the mean of what the "
+                                 f"clusters sent: max abs err {float((got - want).abs().max())}")
+    cfg = dp.comp_cfg
+    sizes = [sum(grads[0][k].numel() for k in members)
+             for _, members in compress.reference_leaves(grads[0])]
+    wire = (n - 1) * sum(4 * s if s < cfg.min_size else 8 * max(int(s * cfg.density), 1)
+                         for s in sizes)
+    if m["wire_bytes"] != wire:
+        raise AssertionError(f"DP: wire_bytes {m['wire_bytes']}, the formula gives {wire}")
+    return states, m, len(g_sum)
+
+
+def train_dp_phase(arch, cfg):
+    """15a: CrossClusterDP, 2 clusters, TRAIN_DP_STEPS steps: every step's
+    exchange held to what the clusters sent (``dp_exchange_check``), and
+    the replicas bit-identical after every step."""
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw, compress
+    from repro_torch.runtime import CrossClusterDP
+
+    dp = CrossClusterDP(
+        lambda p, b: tfm.lm_loss(cfg, p, b["inputs"], b["targets"]),
+        adamw.AdamWConfig(lr=2e-3, warmup_steps=5),
+        compress.CompressConfig(density=0.05, min_size=256), num_clusters=2)
+    states = dp.init(lm_master(cfg, TRAIN_SEED + 1))
+    torch.cuda.synchronize()
+    spmm_cuda.launches = 0
+    metrics = []
+    for s in range(TRAIN_DP_STEPS):
+        states, m, held = dp_exchange_check(
+            dp, states, [train_batch(cfg, 100 + 2 * s + c) for c in range(2)])
+        metrics.append(m)
+        for a, b in zip(states[0].params.parameters(), states[1].params.parameters()):
+            if not torch.equal(a, b):
+                raise AssertionError(f"15a {arch} DP: replicas differ after step {s}")
+    torch.cuda.synchronize()
+    return {"launches": spmm_cuda.launches, "losses": [m["loss"] for m in metrics],
+            "wire_bytes": metrics[-1]["wire_bytes"], "params_held": held}
+
+
+def train_smoke_phase(root):
+    """15a for every MoE SMOKE arch, then the launcher's --smoke run."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.launch import train as launch_train
+
+    out = {}
+    for arch in moe_archs():
+        cfg = get_config(arch, smoke=True)
+        g = train_grads_phase(arch, cfg, lm_master(cfg, TRAIN_SEED))
+        plain, res, loop_launches = train_loop_phase(arch, cfg, root)
+        dp = train_dp_phase(arch, cfg)
+        same = res.losses == plain.losses
+        log(f"15a {arch}: grads through the kernel vs the plain SpMM, max abs err "
+            + ", ".join(f"{k} {v:.3g}" for k, v in g["max_abs_err"].items())
+            + f" ({g['launches']} launches, remat off); loop of {TRAIN_LOOP_STEPS} steps "
+            f"{loop_launches} launches, losses {plain.losses[0]:.4f} -> {plain.losses[-1]:.4f}; "
+            f"failure at step {TRAIN_FAIL_STEP}: {res.restarts} restart, the uninterrupted "
+            f"losses {'bit for bit' if same else 'within rtol 1e-6'}; DP 2 clusters "
+            f"{TRAIN_DP_STEPS} steps: the exchange the mean of what was sent on all "
+            f"{dp['params_held']} parameters, bit for bit, replicas bit-identical, "
+            f"{dp['launches']} launches, {dp['wire_bytes']:.0f} wire bytes a step (the formula's)")
+        out[arch] = {"grads": g, "loop_launches": loop_launches, "loop_losses": plain.losses,
+                     "restart_bit_identical": same, "dp": dp}
+    argv = ["--arch", OLMOE, "--smoke", "--steps", "3", "--ckpt", os.path.join(root, "launch")]
+    torch.cuda.synchronize()
+    spmm_cuda.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = launch_train.main(argv)
+    torch.cuda.synchronize()
+    last = printed.getvalue().strip().splitlines()[-1]
+    cfg = get_config(OLMOE, smoke=True)
+    want = 6 * cfg.n_layers * 3
+    if rc != 0 or not last.startswith("done: step=3 ") or spmm_cuda.launches != want:
+        raise AssertionError(f"15a launcher: rc {rc}, {last!r}, {spmm_cuda.launches} SpMM "
+                             f"launches, want {want}")
+    log(f"15a python -m repro_torch.launch.train {' '.join(argv[:4])}: {last}; "
+        f"{spmm_cuda.launches} SpMM launches")
+    out["launcher"] = {"launches": spmm_cuda.launches, "line": last}
+    return out
+
+
+def olmoe_train_step_ops(cfg, model, batch):
+    """Layer 0's dispatch and combine operands of a forward over ``batch``
+    (no grad: the operands alone)."""
+    import torch
+
+    from repro_torch.core import local_spgemm
+    from repro_torch.core.sparse import SparseCOO
+    from repro_torch.models import transformer as tfm
+
+    seen, inner = [], local_spgemm.spmm
+
+    def spy(a, b, *args, **kw):
+        if len(seen) < 2:
+            seen.append((SparseCOO(rows=a.rows, cols=a.cols, vals=a.vals.detach(), nnz=a.nnz,
+                                   shape=a.shape), b.detach().clone()))
+        return inner(a, b, *args, **kw)
+
+    local_spgemm.spmm = spy
+    try:
+        with torch.no_grad():
+            tfm.forward(cfg, model, batch["inputs"])
+    finally:
+        local_spgemm.spmm = inner
+    return seen
+
+
+def swapped(a):
+    """Aᵀ's padded COO: the operand of the dB launch."""
+    from repro_torch.core.sparse import SparseCOO
+
+    return SparseCOO(rows=a.cols, cols=a.rows, vals=a.vals, nnz=a.nnz,
+                     shape=(a.shape[1], a.shape[0]))
+
+
+def dvals_timing(a, g, b):
+    """dvals' plain time for the combine (G (T, D) f32, B = Y) and its
+    bound: the live entries' indices read and values written, the rows of
+    G and of B they name read once, 2 operations an entry a column."""
+    import torch
+
+    from repro_torch.kernels.spmm_kernel import spmm_dvals
+
+    m, k = a.shape
+    rows = torch.where(a.valid_mask(), a.rows, torch.full_like(a.rows, m))
+    live = (rows < m) & (a.cols < k)
+    nnz = int(live.sum())
+    g_rows = int(torch.unique(rows[live]).numel())
+    b_rows = int(torch.unique(a.cols[live]).numel())
+    n = b.shape[1]
+    ms = cuda_ms(lambda: spmm_dvals(rows, a.cols, g, b, m), 5)
+    bound, by = bound_ms(nnz * 12 + g_rows * n * g.element_size() + b_rows * n * b.element_size(),
+                         2 * nnz * n)
+    return {"plain_ms": ms, "bound_ms": bound, "bound_by": by, "live": nnz}
+
+
+def olmoe_train_phase():
+    """15b: OLMoE-1B-7B at full width, 4 layers, bf16 compute, f32
+    masters, remat, batch 8 x 2048; then 15b's SpMM timings at T = 16384."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, Prefetcher
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.models.common import param_count
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, build_train_step
+
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=OLMOE_TRAIN_LAYERS)
+    assert cfg.remat and cfg.dtype == "bfloat16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = lm_master(cfg, TRAIN_SEED)
+    opt = adamw.init_opt_state(model)
+    torch.cuda.synchronize()
+    n_params = param_count(model)
+    state = torch.cuda.memory_allocated() - base
+    log(f"15b {OLMOE}: {cfg.n_layers} of 16 layers at full width, {n_params} parameters, "
+        f"f32 masters + AdamW moments {state / 2**30:.3f} GiB on the card (+ f32 grads "
+        f"{4 * n_params / 2**30:.3f} GiB a step), made in {time.perf_counter() - t0:.2f} s")
+    step = build_train_step(cfg, TrainConfig(optimizer=adamw.AdamWConfig(**OLMOE_TRAIN_OPT)),
+                            "cuda")
+    data = Prefetcher(DataConfig(seq_len=OLMOE_TRAIN_SEQ, global_batch=OLMOE_TRAIN_BATCH,
+                                 vocab=cfg.vocab, seed=TRAIN_SEED), 0, "cuda")
+    tokens = OLMOE_TRAIN_BATCH * OLMOE_TRAIN_SEQ
+    want = 6 * cfg.n_layers
+    losses, step_ms, launches = [], [], []
+    for i in range(OLMOE_TRAIN_WARMUP + OLMOE_TRAIN_TIMED):
+        batch = next(data)
+        torch.cuda.synchronize()
+        spmm_cuda.launches = 0
+        t0 = time.perf_counter()
+        model, opt, m = step(model, opt, batch)
+        loss = float(m["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+        launches.append(spmm_cuda.launches)
+        log(f"15b step {i}: loss {loss:.6f}, grad norm {float(m['grad_norm']):.4f}, lr "
+            f"{float(m['lr']):.2e}, {step_ms[-1]:.1f} ms, {spmm_cuda.launches} SpMM launches")
+        if not np.isfinite(loss) or spmm_cuda.launches != want:
+            raise AssertionError(f"15b step {i}: loss {loss}, {spmm_cuda.launches} SpMM "
+                                 f"launches, want {want} = {cfg.n_layers} layers x (2 forward "
+                                 f"+ 2 recompute + 2 dB)")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"15b: the loss does not fall: {losses}")
+    timed = step_ms[OLMOE_TRAIN_WARMUP:]
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"15b: {OLMOE_TRAIN_TIMED} timed steps {np.mean(timed):.1f} ms mean, "
+        f"{np.median(timed):.1f} ms median ({tokens / np.mean(timed) * 1e3:.1f} tokens/s, "
+        f"T = {tokens}); warm-up steps {step_ms[0]:.1f}, {step_ms[1]:.1f} ms; loss "
+        f"{np.mean(losses[:3]):.4f} (first 3) -> {np.mean(losses[-3:]):.4f} (last 3); peak "
+        f"{peak / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before")
+    batch = next(data)
+    spmm_cuda.launches = 0
+    total, times = profile_top("15b one train step", lambda: step(model, opt, batch), rows=12,
+                               kernel="spmm_tile_kernel")
+    if not times or len(times) != want:
+        raise AssertionError(f"15b: the profiler recorded {len(times or ())} SpMM launches of "
+                             f"{want}")
+    spmm_ms = sum(times) / 1e3
+    log(f"15b profiled step: {total:.1f} ms device time, SpMM {spmm_ms:.3f} ms in "
+        f"{len(times)} launches ({100 * spmm_ms / total:.2f} %)")
+    ops = olmoe_train_step_ops(cfg, model, next(data))
+    del model, opt, step, data
+    torch.cuda.empty_cache()
+    (dispatch, x), (combine, y) = ops
+    at = f"T={tokens}"
+    g = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    g_disp = torch.randn((dispatch.shape[0], x.shape[1]), generator=g, device="cuda")
+    g_comb = torch.randn((combine.shape[0], y.shape[1]), generator=g, device="cuda")
+    spmm = {
+        "dispatch_fwd": check_moe_spmm(f"dispatch forward {at}", dispatch, x, "15b"),
+        "combine_fwd": check_moe_spmm(f"combine forward {at}", combine, y, "15b"),
+        "dispatch_dB": check_moe_spmm(f"dispatch dB {at}", swapped(dispatch), g_disp, "15b"),
+        "combine_dB": check_moe_spmm(f"combine dB {at}", swapped(combine), g_comb, "15b"),
+    }
+    dv = dvals_timing(combine, g_comb, y)
+    log(f"15b combine dvals (plain PyTorch) {at}: {dv['plain_ms']:.4f} ms (CUDA events), "
+        f"{dv['live']} live entries, bound {dv['bound_ms']:.6f} ms ({dv['bound_by']})")
+    return {"params": n_params, "losses": losses, "step_ms": step_ms, "launches": launches,
+            "tokens_per_s": tokens / np.mean(timed) * 1e3, "mean_step_ms": float(np.mean(timed)),
+            "peak_gib": peak / 2**30,
+            "profile": {"device_ms": total, "spmm_ms": spmm_ms, "spmm_launches": len(times),
+                        "spmm_share": spmm_ms / total}, "spmm": spmm, "dvals": dv}
+
+
+def train_phase():
+    """Phase 15: training (15a, 15b). Returns its records."""
+    import torch
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        smoke = train_smoke_phase(root)
+    log(f"15a: {time.perf_counter() - t_phase:.1f} s")
+    olmoe = olmoe_train_phase()
+    torch.cuda.empty_cache()
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return {"smoke": smoke, "olmoe": olmoe}
 
 
 def main() -> int:
@@ -4479,6 +4978,8 @@ def main() -> int:
     # 14. the LM serving path (after 6: it profiles a decode tick, and the
     # profiler has recorded no device event late in long runs)
     p14 = lm_phase()
+    # 15. training: the differentiable SpMM, the train step, the loop
+    p15 = train_phase()
     # 7-8. Markov clustering, sparse and dense
     t0 = time.perf_counter()
     seg_mcl, ref7 = mcl_sparse_phase(grid)
@@ -4625,6 +5126,27 @@ def main() -> int:
                                       for key, rec in spmm14.items() for dt in ("bf16", "f32")}
     row["spmm"]["moe_library_ms"] = {key: rec["library_ms"] for key, rec in spmm14.items()}
     row["spmm"]["moe_decode_tick_profile"] = p14["olmoe"]["profile"]
+    # phase 15's training launches (forward, remat recompute, dB), each
+    # run's count set to 0 just before it; the T = 16384 timings
+    p15s, p15b = p15["smoke"], p15["olmoe"]
+    row["spmm"]["train_launches"] = {
+        **{f"15a_{a}_grads_remat_off": r["grads"]["launches"]
+           for a, r in p15s.items() if a != "launcher"},
+        **{f"15a_{a}_loop_{TRAIN_LOOP_STEPS}_steps": r["loop_launches"]
+           for a, r in p15s.items() if a != "launcher"},
+        **{f"15a_{a}_dp_{TRAIN_DP_STEPS}_steps": r["dp"]["launches"]
+           for a, r in p15s.items() if a != "launcher"},
+        "15a_launcher_olmoe_smoke_3_steps": p15s["launcher"]["launches"],
+        "15b_olmoe_4_layers_per_step": p15b["launches"]}
+    row["spmm"]["train_grad_max_abs_err"] = {a: r["grads"]["max_abs_err"]
+                                            for a, r in p15s.items() if a != "launcher"}
+    for field in ("ms", "bound_ms", "bound_by", "plain_ms", "max_abs_err"):
+        row["spmm"][f"train_{field}"] = {f"{key}_{dt}": rec[dt][field]
+                                        for key, rec in p15b["spmm"].items()
+                                        for dt in ("bf16", "f32")}
+    row["spmm"]["train_library_ms"] = {key: rec["library_ms"] for key, rec in p15b["spmm"].items()}
+    row["spmm"]["train_dvals_plain"] = p15b["dvals"]
+    row["spmm"]["train_step_profile"] = p15b["profile"]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

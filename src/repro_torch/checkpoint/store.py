@@ -27,7 +27,9 @@ checkpoint written by either package reads in the other:
     multiply; it counts stall time and bytes written for the ``RunReport``.
 
 ``restore`` puts the leaves on the device the caller gives (by default the
-template's), whatever device wrote them.
+template's), whatever device wrote them, in the template's dtype. numpy has
+no bfloat16, so a bfloat16 leaf is written as float32 (exactly: every
+bfloat16 is a float32) and ``restore`` casts it back.
 """
 from __future__ import annotations
 
@@ -98,10 +100,11 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: str = ""):
 
 def _host_copy(x) -> np.ndarray:
     """A fresh host copy of a leaf: a tensor is copied off its device
-    (blocking), an array or scalar copied, so later writes to ``x`` never
-    reach the copy."""
+    (blocking), a bfloat16 one widened to float32 on the host, an array or
+    scalar copied, so later writes to ``x`` never reach the copy."""
     if isinstance(x, torch.Tensor):
-        return x.detach().to("cpu", copy=True).numpy()
+        x = x.detach().to("cpu", copy=True)
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.array(x, copy=True)
 
 
@@ -210,8 +213,9 @@ def restore(
     path: str, step: int, like: Dict[str, Any], device=None,
 ) -> Dict[str, Any]:
     """Restore into the structure of ``like`` (a dict of tensors): every
-    leaf becomes a tensor on ``device``, by default the template leaf's.
-    The saved layout is irrelevant; names and shapes must match."""
+    leaf becomes a tensor on ``device``, by default the template leaf's, in
+    the template leaf's dtype. The saved layout is irrelevant; names and
+    shapes must match."""
     arrays, _ = _read_verified(os.path.join(path, f"step_{step:08d}"))
     flat_like = _flatten(like)
     if set(flat_like) != set(arrays):
@@ -224,7 +228,8 @@ def restore(
             raise ValueError(f"checkpoint leaf {k}: shape {a.shape}, template "
                              f"{tuple(template.shape)}")
         dev = device if device is not None else getattr(template, "device", "cpu")
-        out[k] = torch.from_numpy(a).to(dev)
+        dtype = template.dtype if isinstance(template, torch.Tensor) else None
+        out[k] = torch.from_numpy(a).to(dev, dtype)
     return _unflatten(like, out)
 
 

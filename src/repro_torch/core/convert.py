@@ -14,7 +14,12 @@
     pinned binned and local-path decisions) as the fields of the port's ``MCLLoopState``, so
     both loops can go on from the same iterate.
   * ``lm_params_from_reference`` — the JAX package's LM parameter tree (as
-    numpy arrays) as the port's model, its stacked layers unstacked.
+    numpy arrays) as the port's model, its stacked layers unstacked; with
+    ``master=True`` in f32 (the training model), else ndim > 1 in the
+    compute dtype (the serving model).
+  * ``opt_state_from_reference`` — the JAX package's AdamW state (mu, nu,
+    count, and master with ``master_in_opt``) as the port's, its trees
+    unstacked in the same way, so both packages train on from one state.
 """
 from __future__ import annotations
 
@@ -94,19 +99,12 @@ def iterate_from_reference(state, device="cuda") -> dict:
     }
 
 
-def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any],
-                             device="cuda") -> transformer.ParamTree:
-    """The port's model (``models.transformer``) holding the JAX package's
-    parameters ``params`` (its nested dict, leaves as numpy arrays or
-    anything ``np.asarray`` takes) for ``cfg``.
-
-    The leading layer axis of every ``layers`` leaf is unstacked into one
-    entry a layer; ``shared_block``, ``moe.shared``, a tied head (no
-    ``lm_head``) and an ``"embeds"`` model (no ``embed``) carry over as they
-    are. Leaves with ndim > 1 (per layer) go to the compute dtype, the rest
-    stay f32, as the JAX package casts them inside each layer. Raises
-    ``ValueError`` on a leaf the model has no place for, a leaf it needs that
-    is missing, or a shape that differs."""
+def _unstacked(cfg: transformer.ModelConfig, params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """``{port parameter name: array}`` of a JAX LM parameter tree (or a
+    tree of its shape, such as AdamW's moments) for ``cfg``: every
+    ``layers`` leaf's leading axis unstacked into ``layers.<i>.<rest>``.
+    Raises ``ValueError`` on a leaf the model has no place for, a leaf it
+    needs that is missing, or a shape that differs."""
     flat: Dict[str, np.ndarray] = {}
 
     def walk(path, node):
@@ -129,8 +127,42 @@ def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any
     if missing or extra or shapes:
         raise ValueError(f"{cfg.arch_id}: parameters missing {missing}, not consumed "
                          f"{extra}, of another shape {shapes}")
-    cd = cfg.compute_dtype
-    state = {k: torch.as_tensor(np.array(v, dtype=np.float32, copy=True)).to(
-        device=device, dtype=cd if v.ndim > 1 else torch.float32) for k, v in flat.items()}
+    return {name: flat[name] for name in want}  # the model's order
+
+
+def _f32(a: np.ndarray, device) -> Tensor:
+    return torch.as_tensor(np.array(a, dtype=np.float32, copy=True)).to(device)
+
+
+def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any],
+                             device="cuda", master: bool = False) -> transformer.ParamTree:
+    """The port's model (``models.transformer``) holding the JAX package's
+    parameters ``params`` (its nested dict, leaves as numpy arrays or
+    anything ``np.asarray`` takes) for ``cfg``.
+
+    The leading layer axis of every ``layers`` leaf is unstacked into one
+    entry a layer; ``shared_block``, ``moe.shared``, a tied head (no
+    ``lm_head``) and an ``"embeds"`` model (no ``embed``) carry over as they
+    are. Leaves with ndim > 1 (per layer) go to the compute dtype, or stay
+    f32 with ``master`` (the JAX package's f32 masters, cast at use), the
+    rest stay f32. Raises ``ValueError`` as ``_unstacked`` does."""
+    flat = _unstacked(cfg, params)
+    model = transformer.init_params(cfg, None, "meta")
+    cd = torch.float32 if master else cfg.compute_dtype
+    state = {k: _f32(v, device).to(cd if v.ndim > 1 else torch.float32)
+             for k, v in flat.items()}
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def opt_state_from_reference(cfg: transformer.ModelConfig, state: Dict[str, Any],
+                             device="cuda") -> Dict[str, Any]:
+    """The port's AdamW state (``optim.adamw``) holding the JAX package's
+    ``state`` for ``cfg``'s parameters: mu, nu (and master, when present)
+    unstacked as ``lm_params_from_reference`` unstacks the parameters, in
+    f32, and count as an int32 scalar."""
+    out = {key: {k: _f32(v, device) for k, v in _unstacked(cfg, state[key]).items()}
+           for key in ("mu", "nu", "master") if key in state}
+    out["count"] = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                                device=device)
+    return out

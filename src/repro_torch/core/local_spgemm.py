@@ -37,6 +37,7 @@ from . import sparse as sparse_mod
 from .sparse import SparseCOO
 from ..kernels import spgemm_binned as binnedkern
 from ..kernels import spgemm_hash as hashkern
+from ..kernels.spmm_kernel import SpmmFunction
 from ..kernels.spmm_kernel import spmm as spmm_entries
 
 Tensor = torch.Tensor
@@ -67,12 +68,26 @@ def spmm(a: SparseCOO, b_dense: Tensor, semiring: sr.Semiring = sr.PLUS_TIMES,
     ``out`` (an f32 (m, n) tile; sum monoids only) takes the product added
     in place, ``out + A·B``, and is returned: on the card the kernel's
     accumulate mode, so no second tile is made.
+
+    When autograd needs a gradient (grad enabled, and A's values or B
+    require one) the product goes through ``kernels.spmm_kernel.
+    SpmmFunction`` on either device: the kernel forward and for dB on the
+    card, the plain version on the CPU. That path computes plus_times
+    without ``out`` and raises for anything else.
     """
     m, k = a.shape
     assert b_dense.shape[0] == k, (a.shape, tuple(b_dense.shape))
     valid = a.valid_mask()
     if out is not None and semiring.add_kind != "sum":
         raise ValueError(f"spmm into out adds: sum monoids only, got {semiring.name}")
+    if torch.is_grad_enabled() and (a.vals.requires_grad or b_dense.requires_grad):
+        if semiring.name != "plus_times" or out is not None:
+            raise ValueError(f"a differentiable spmm computes plus_times without out, got "
+                             f"{semiring.name}{' into out' if out is not None else ''}")
+        rows = torch.where(valid, a.rows, torch.full_like(a.rows, m))
+        vals = torch.where(valid, a.vals, torch.zeros_like(a.vals))
+        out = SpmmFunction.apply(rows, a.cols, vals, b_dense, m)
+        return out.to(torch.result_type(a.vals, b_dense))
     if b_dense.is_cuda:
         if semiring.name != "plus_times":
             raise ValueError(f"the SpMM kernel computes plus_times, got {semiring.name}")

@@ -23,7 +23,8 @@ Tensor = torch.Tensor
 
 
 class ParamTree(nn.Module):
-    """A nested dict of tensors as a module of frozen parameters."""
+    """A nested dict of tensors as a module of parameters, frozen until a
+    trainer asks for their gradients."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -43,6 +44,11 @@ class ParamTree(nn.Module):
 
     def get(self, name: str, default=None):
         return getattr(self, name) if name in self else default
+
+    def items(self):
+        """(name, tensor or subtree) pairs, parameters first, as a dict's."""
+        yield from self._parameters.items()
+        yield from self._modules.items()
 
 
 def rms_norm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:

@@ -10,10 +10,17 @@ vision / musicgen audio frontends).
 The model is a ``common.ParamTree`` whose parameters keep the JAX package's
 names, shapes and axis orders, with ``layers`` an ``nn.ModuleList`` (one
 entry a layer, where the JAX package stacks them on a leading axis for
-``lax.scan``). The JAX package keeps f32 master weights and casts every
+``lax.scan``). The JAX package keeps f32 master weights and casts every f32
 parameter with ndim > 1 to the compute dtype inside each layer; the port
-casts them once when the model is made (the values are the same) and keeps
-1-D parameters in f32. ``remat`` is a training knob and is ignored here.
+does the same at the point of use. A serving model (``init_params``'s
+default) holds those parameters in the compute dtype already, where the
+cast returns the tensor as it is; a training model (``master=True``) holds
+f32 masters, which AdamW updates. 1-D parameters stay f32 in both.
+
+``forward`` and ``lm_loss`` are differentiable. With ``cfg.remat`` and
+grad enabled each layer (the hybrid: each group with its shared block)
+runs under ``torch.utils.checkpoint`` and is recomputed in the backward,
+where the JAX package wraps the same bodies in ``jax.checkpoint``.
 
 Serving runs under ``torch.inference_mode()``. Caches keep the JAX
 package's stacked layout (a leading layer axis, or one entry per
@@ -26,6 +33,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
 from . import mlp as mlp_mod
@@ -124,10 +132,10 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
-def _as_model(cfg: ModelConfig, tree: Dict[str, Any]) -> ParamTree:
+def _as_model(cfg: ModelConfig, tree: Dict[str, Any], master: bool = False) -> ParamTree:
     """The model holding ``tree``: every tensor with ndim > 1 in the
-    compute dtype, the rest in f32."""
-    cd = cfg.compute_dtype
+    compute dtype (f32 with ``master``), the rest in f32."""
+    cd = torch.float32 if master else cfg.compute_dtype
 
     def cast(node):
         if isinstance(node, dict):
@@ -139,16 +147,30 @@ def _as_model(cfg: ModelConfig, tree: Dict[str, Any]) -> ParamTree:
     return ParamTree(cast(tree))
 
 
+def _at_use(cfg: ModelConfig, node):
+    """``node`` (a tensor, or a ``ParamTree`` or dict of them) with every
+    f32 tensor of ndim > 1 in the compute dtype, as the JAX package casts a
+    layer's parameters inside its body; a tensor already in that dtype is
+    returned as it is."""
+    if isinstance(node, torch.Tensor):
+        if node.dtype == torch.float32 and node.dim() > 1:
+            return node.to(cfg.compute_dtype)
+        return node
+    return {k: _at_use(cfg, v) for k, v in node.items()}
+
+
 def _attn_block_init(cfg: ModelConfig, generator, dtype, device, pad_heads_to=0):
     return attn_mod.init_attention(generator, cfg.d_model, cfg.n_heads, cfg.kv_heads,
                                    cfg.hdim, dtype, device, pad_heads_to=pad_heads_to)
 
 
-def init_params(cfg: ModelConfig, generator, device="cuda") -> ParamTree:
+def init_params(cfg: ModelConfig, generator, device="cuda", master: bool = False) -> ParamTree:
     """The port's seeded init (other numbers than the JAX package's from
     the same seed). ``generator`` lives on ``device``; on the "meta" device
-    (generator None) this gives the model's structure without memory."""
-    dtype = cfg.compute_dtype
+    (generator None) this gives the model's structure without memory.
+    ``master`` keeps every parameter in f32 (the training model: the
+    compute dtype is applied at use)."""
+    dtype = torch.float32 if master else cfg.compute_dtype
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)  # noqa: E731
     params: Dict[str, Any] = {}
     if cfg.input_mode == "tokens":
@@ -184,7 +206,7 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> ParamTree:
             "attn": _attn_block_init(cfg, generator, dtype, device),
             "mlp": mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype, device),
         }
-    return _as_model(cfg, params)
+    return _as_model(cfg, params, master)
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +253,8 @@ def _shared_block_fwd(cfg: ModelConfig, sp, h, positions, kv_cache=None, cache_i
 
 def _embed(cfg: ModelConfig, params, inputs: Tensor) -> Tensor:
     cd = cfg.compute_dtype
-    if cfg.input_mode == "tokens":
-        h = params["embed"][inputs.long()]
+    if cfg.input_mode == "tokens":  # cast after the gather: no cast copy of the table
+        h = params["embed"][inputs.long()].to(cd)
     else:
         h = inputs.to(cd)
     if cfg.embed_scale:  # sqrt(d_model) in f32, rounded to the compute dtype
@@ -252,7 +274,7 @@ def _logits(cfg: ModelConfig, params, h: Tensor) -> Tensor:
     """(B, S, padded vocab) f32: final norm, unembed, soft-cap, pad mask."""
     h = rms_norm(h, params["final_norm"])
     w_out = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", h, w_out)
+    logits = torch.einsum("bsd,dv->bsv", h, w_out.to(cfg.compute_dtype))
     return _mask_pad_vocab(cfg, soft_cap(logits.float(), cfg.final_softcap))
 
 
@@ -266,32 +288,64 @@ def _mamba_groups(cfg: ModelConfig) -> List[range]:
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill without a cache)
+# forward (training, and prefill without a cache)
 # ---------------------------------------------------------------------------
-@torch.inference_mode()
+def _remat(cfg: ModelConfig, body, *args):
+    """``body(*args)``, recomputed in the backward when ``cfg.remat`` and
+    grad are on (``jax.checkpoint`` of the JAX package's scan bodies)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
 def forward(cfg: ModelConfig, params, inputs: Tensor) -> Tuple[Tensor, Tensor]:
     """inputs (B,S) tokens or (B,S,D) embeds. Returns (logits (B,S,padded
-    vocab) f32, aux loss scalar)."""
+    vocab) f32, aux loss scalar). Differentiable; run it under
+    ``torch.no_grad()`` or ``inference_mode()`` to serve."""
     h = _embed(cfg, params, inputs)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = params["layers"]
     if cfg.family == "attn":
+        def body(h, lp, window):
+            h, aux, _ = _attn_layer_fwd(cfg, _at_use(cfg, lp), h, positions, window)
+            return h, aux
+
         for lp, window in zip(layers, _layer_windows(cfg)):
-            h, aux, _ = _attn_layer_fwd(cfg, lp, h, positions, window)
+            h, aux = _remat(cfg, body, h, lp, window)
             if aux is not None:
                 aux_total = aux_total + aux
     elif cfg.family == "ssm":
+        def body(h, lp):
+            return h + ssm_mod.mamba2_block(_at_use(cfg, lp["mamba"]), rms_norm(h, lp["ln"]),
+                                            cfg.ssm)
+
         for lp in layers:
-            h = h + ssm_mod.mamba2_block(lp["mamba"], rms_norm(h, lp["ln"]), cfg.ssm)
+            h = _remat(cfg, body, h, lp)
     else:  # hybrid
-        for group in _mamba_groups(cfg):
+        def group_body(h, group):
             for i in group:
                 lp = layers[i]
-                h = h + ssm_mod.mamba2_block(lp["mamba"], rms_norm(h, lp["ln"]), cfg.ssm)
-            h = _shared_block_fwd(cfg, params["shared_block"], h, positions)
+                h = h + ssm_mod.mamba2_block(_at_use(cfg, lp["mamba"]), rms_norm(h, lp["ln"]),
+                                             cfg.ssm)
+            return _shared_block_fwd(cfg, _at_use(cfg, params["shared_block"]), h, positions)
+
+        for group in _mamba_groups(cfg):
+            h = _remat(cfg, group_body, h, group)
     return _logits(cfg, params, h), aux_total
+
+
+def lm_loss(cfg: ModelConfig, params, inputs: Tensor, targets: Tensor,
+            aux_weight: float = 0.01) -> Tensor:
+    """Mean next-token cross entropy over (B, S) plus ``aux_weight`` times
+    the MoE balance loss: the JAX package's ``lm_loss`` on one device,
+    whose vocab-parallel form (``_sharded_xent``) it equals on a 1 x 1 mesh.
+    The padded vocab's logits are -1e30, so they take no probability."""
+    logits, aux = forward(cfg, params, inputs)
+    lse = torch.logsumexp(logits, dim=-1)  # (B, S)
+    target = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - target).mean() + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------
@@ -327,10 +381,11 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
     def mamba(i, h):
         lp = layers[i]
         x, state = rms_norm(h, lp["ln"]), (cache["conv"][i], cache["ssm"][i])
+        mp = _at_use(cfg, lp["mamba"])
         if decode:
-            out, (conv, st) = ssm_mod.mamba2_decode_step(lp["mamba"], x, cfg.ssm, state)
+            out, (conv, st) = ssm_mod.mamba2_decode_step(mp, x, cfg.ssm, state)
         else:
-            out, (conv, st) = ssm_mod.mamba2_block(lp["mamba"], x, cfg.ssm, state=state,
+            out, (conv, st) = ssm_mod.mamba2_block(mp, x, cfg.ssm, state=state,
                                                    return_state=True)
         cache["conv"][i] = conv
         cache["ssm"][i] = st
@@ -339,7 +394,7 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
     if cfg.family == "attn":
         mode = "dense_ep" if decode else "a2a"
         for i, (lp, window) in enumerate(zip(layers, _layer_windows(cfg))):
-            h, _, _ = _attn_layer_fwd(cfg, lp, h, positions, window,
+            h, _, _ = _attn_layer_fwd(cfg, _at_use(cfg, lp), h, positions, window,
                                       kv_cache=(cache["k"][i], cache["v"][i]),
                                       cache_index=cache_index, moe_mode=mode)
     elif cfg.family == "ssm":
@@ -349,7 +404,7 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
         for g, group in enumerate(_mamba_groups(cfg)):
             for i in group:
                 h = mamba(i, h)
-            h = _shared_block_fwd(cfg, params["shared_block"], h, positions,
+            h = _shared_block_fwd(cfg, _at_use(cfg, params["shared_block"]), h, positions,
                                   kv_cache=(cache["k"][g], cache["v"][g]),
                                   cache_index=cache_index)
     return h

@@ -299,6 +299,18 @@ def test_restore_arrays_reads_the_other_package(tmp_path, writer):
     assert got["['b']['y']"].dtype == np.int64
 
 
+def test_bf16_leaf_written_as_f32_and_restored_as_bf16(tmp_path):
+    """numpy has no bfloat16: the leaf is written as float32, which holds
+    every bfloat16 exactly, and comes back in the template's dtype."""
+    w = torch.randn(8, 4, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
+    store.save(str(tmp_path), 1, {"w": w, "m": w.float()})
+    assert store.restore_arrays(str(tmp_path), 1)["['w']"].dtype == np.float32
+    back = store.restore(str(tmp_path), 1, {"w": torch.zeros(8, 4, dtype=torch.bfloat16),
+                                            "m": torch.zeros(8, 4)})
+    assert back["w"].dtype == torch.bfloat16 and torch.equal(back["w"], w)
+    assert back["m"].dtype == torch.float32 and torch.equal(back["m"], w.float())
+
+
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 def test_restore_into_template_across_packages(tmp_path, writer):
     rng = np.random.default_rng(3)

@@ -806,3 +806,82 @@ def test_lm_engine_tick_on_the_card_matches_cpu(cuda_device):
         tokens[str(dev)] = {slot: list(r.out_tokens) for slot, r in eng.active.items()}
     assert launched == 2 * cfg.n_layers * (3 + 1)
     assert tokens[str(cuda_device)] == tokens["cpu"]
+
+
+@pytest.mark.parametrize("kind", ["dispatch", "combine"])
+def test_spmm_function_on_the_card_matches_cpu(cuda_device, kind):
+    """The differentiable SpMM: on the card the forward and dB launch the
+    kernel (2 launches), dvals is plain; the gradients within rtol 1e-5 of
+    the CPU's plain Function (f32 sums in another order). A dispatch-like
+    product (constant values) asks for dB only, a combine-like one for
+    both; sentinel rows and columns are padding."""
+    import numpy as np
+
+    m, k, n, cap = (48, 20, 16, 40) if kind == "dispatch" else (20, 48, 16, 40)
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, m, cap).astype(np.int32)
+    cols = rng.integers(0, k, cap).astype(np.int32)
+    rows[1::5], cols[2::7] = m, k
+    vals = (np.ones(cap) if kind == "dispatch" else rng.standard_normal(cap)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        v = torch.as_tensor(vals, device=dev).requires_grad_(kind == "combine")
+        bt = torch.as_tensor(b, device=dev).requires_grad_(True)
+        a = tsparse.SparseCOO(rows=torch.as_tensor(rows, device=dev),
+                              cols=torch.as_tensor(cols, device=dev), vals=v,
+                              nnz=torch.tensor(cap, dtype=torch.int32, device=dev), shape=(m, k))
+        before = spmm_cuda.launches
+        out = tlocal.spmm(a, bt)
+        out.backward(torch.as_tensor(g, device=dev))
+        torch.cuda.synchronize()
+        assert spmm_cuda.launches - before == (0 if dev == "cpu" else 2)
+        grads[str(dev)] = (out.detach().cpu(), bt.grad.cpu(), None if v.grad is None else
+                           v.grad.cpu())
+    (out_c, db_c, dv_c), (out_g, db_g, dv_g) = grads["cpu"], grads[str(cuda_device)]
+    torch.testing.assert_close(out_g, out_c, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(db_g, db_c, rtol=1e-5, atol=1e-6)
+    if kind == "combine":
+        torch.testing.assert_close(dv_g, dv_c, rtol=1e-5, atol=1e-6)
+    else:
+        assert dv_g is None and dv_c is None
+
+
+def test_train_step_on_the_card_matches_cpu(cuda_device):
+    """One train step of OLMoE SMOKE (f32 masters, remat on) on the card
+    and on the CPU from the same weights and batch: 6 SpMM launches a layer
+    (2 forward, 2 recompute, 2 dB), the loss within rtol 1e-5 (f32 sums in
+    other orders) and 99.9 % of each parameter's entries within rtol 1e-4 /
+    atol 1e-6; every entry within 2 lr, the most a first AdamW step (about
+    lr times the gradient's sign) can differ by where a gradient near 0
+    has another sign on the two devices."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b", smoke=True)
+    rng = np.random.default_rng(4)
+    seq = rng.integers(0, cfg.vocab, (4, 17)).astype(np.int32)
+    batch = {"inputs": seq[:, :-1], "targets": seq[:, 1:]}
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        model = tfm.init_params(cfg, torch.Generator().manual_seed(5), "cpu", master=True).to(dev)
+        step = build_train_step(cfg, TrainConfig(optimizer=adamw.AdamWConfig(lr=1e-3)), dev)
+        before = spmm_cuda.launches
+        model, _, m = step(model, adamw.init_opt_state(model), batch)
+        torch.cuda.synchronize()
+        runs[str(dev)] = (float(m["loss"]), spmm_cuda.launches - before,
+                          {k: p.detach().cpu() for k, p in model.named_parameters()})
+    (loss_c, n_c, p_c), (loss_g, n_g, p_g) = runs["cpu"], runs[str(cuda_device)]
+    assert (n_c, n_g) == (0, 6 * cfg.n_layers)
+    np.testing.assert_allclose(loss_g, loss_c, rtol=1e-5)
+    for name, p in p_g.items():
+        diff = (p - p_c[name]).abs()
+        assert float(diff.max()) <= 2e-3, name
+        near = diff <= 1e-6 + 1e-4 * p_c[name].abs()
+        assert float(near.float().mean()) >= 0.999, (name, int((~near).sum()))
