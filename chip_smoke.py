@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-15, one card (14, 15 run after 6; 10 to 13 before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts, four cards
+    python3 chip_smoke.py            # phases 1-16, one card (14, 15 run after 6; 10 to 13 before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts and 16, four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -333,6 +333,24 @@ Phases (any failed check raises, so the script exits non-zero):
           check (kernel vs plain, bit-identical repeats, device time,
           bound, torch.sparse.mm), and dvals' plain time with its bound.
 
+ 16. LM serving on a process mesh (repro_torch.launch.mesh,
+     ServeEngine(..., mesh=)); runs last. OLMoE-1B-7B at its published
+     width and depth in bf16, seeded, on a 2x2 ("data" x "model") mesh:
+     four ranks sharing this card over gloo (--chips 4: one a card over
+     NCCL), each drawing every leaf whole and keeping its slice (half the
+     experts, heads, hidden and vocab). EngineConfig(max_batch=8,
+     s_max=512), 8 requests of seeded prompts of 64-256 tokens, 16 new
+     tokens each, run twice: every rank and both runs the same tokens,
+     SpMM exactly 2 x 16 x (prefills + ticks) launches a rank a run (each
+     count set to 0 just before the run). Then through the step builders
+     a prefill of 4 x 64 tokens and one decode, held against one card in
+     bf16 within atol 0.125: the prefill against the one-card model with
+     each MoE layer applied to the mesh's shards (what "a2a" computes),
+     the decode against a one-card decode from the mesh's own cache
+     (assembled from the ranks' slices), each data shard's slots routed
+     alone ("dense_ep"). Logs each rank's peak memory, decode-only tick
+     times and run 2's share of time inside collectives.
+
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
 reduction, whose row also holds its launches, device time and bound in
@@ -342,8 +360,8 @@ SpMM, hash and segment rows also hold their launches in 11, the hash,
 segment and binned rows their launches in 12 and in 13, the segment row
 its launches per rank in 9's serving, and the SpMM row its accumulate
 mode's check, phase 14's MoE launches and timings, and phase 15's training
-launches, forward and backward, and timings) and the JSON result
-line; with --chips 4 only
+launches, forward and backward, and timings, and phase 16's launches
+per rank) and the JSON result line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -351,6 +369,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import multiprocessing
@@ -4798,6 +4817,311 @@ def train_phase():
     return {"smoke": smoke, "olmoe": olmoe}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: LM serving on a ("data", "model") process mesh
+# ---------------------------------------------------------------------------
+MESH_SHAPE = (2, 2)  # (data, model): 4 ranks
+MESH_LAYERS = 16  # OLMoE-1B-7B's published depth
+MESH_REQUESTS = 8
+MESH_PROMPT = (64, 256)  # prompt lengths drawn from this range, both ends included
+MESH_NEW = 16
+MESH_BATCH, MESH_S_MAX = 8, 512
+MESH_CHECK = (4, 64, 128)  # the one-card check: batch, prompt length, s_max
+# the mesh against one card in bf16 (see mesh_one_card_check): the same
+# arithmetic apart from the order of f32 sums inside cuBLAS calls of other
+# shapes (vocab-split logits, experts on tp·cap rows), each result rounded
+# to bf16, over 16 layers. Logits have a std of ~0.88; the largest
+# differences seen (H100, PR 28) were 0.03125 (prefill) and 0.02344
+# (decode): 4x the larger
+MESH_BF16_TOL = dict(rtol=0.0, atol=0.125)
+MESH_TIMEOUT_S = 600  # one spawn of the mesh phase, every collective included
+
+
+def mesh_prompts(cfg):
+    rng = np.random.default_rng(LM_SEED + 16)
+    lengths = rng.integers(MESH_PROMPT[0], MESH_PROMPT[1] + 1, MESH_REQUESTS)
+    return [rng.integers(0, cfg.vocab, int(s)).astype(np.int32) for s in lengths]
+
+
+def mesh_check_inputs(cfg, device):
+    import torch
+
+    b, s, _ = MESH_CHECK
+    g = torch.Generator(device=device).manual_seed(LM_SEED + 17)
+    return (torch.randint(0, cfg.vocab, (b, s), generator=g, device=device),
+            torch.randint(0, cfg.vocab, (b, 1), generator=g, device=device))
+
+
+class CollectiveClock:
+    """Host time inside the mesh's collectives while installed: each call
+    synchronises the card before and after it, so a call's time is the
+    transfer plus the wait for the slowest peer, not this rank's own
+    kernels queued ahead of it."""
+
+    def __init__(self):
+        from repro_torch.core.grid import AxisCollectives
+
+        self.cls, self.seconds, self.calls, self.saved = AxisCollectives, 0.0, 0, {}
+
+    def __enter__(self):
+        import torch
+
+        for name in ("_gather", "_reduce", "all_to_all"):
+            inner = self.saved[name] = getattr(self.cls, name)
+
+            def timed(obj, *a, _inner=inner, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _inner(obj, *a, **k)
+                torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t
+                self.calls += 1
+                return out
+
+            setattr(self.cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def mesh_serve_rank(mesh, p16):
+    """Phase 16 on one rank: OLMoE-1B-7B (``p16["layers"]`` layers) cut to
+    this rank's slices at init, the stream served twice through the
+    engine on the mesh (run 2 under ``CollectiveClock``), each run's SpMM
+    count set to 0 just before and read just after; then the one-card
+    check's prefill and one decode through the step builders. Returns the
+    tokens, counts, times and the check's logits and cache slices."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import EngineConfig, Request, ServeEngine
+    from repro_torch.train import build_decode_step, build_prefill_step
+
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p16["layers"])
+    dev = mesh.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED), dev,
+                            mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    prompts = mesh_prompts(cfg)
+    runs = []
+    for run in range(2):
+        eng = ServeEngine(cfg, model, EngineConfig(max_batch=MESH_BATCH, s_max=MESH_S_MAX),
+                          device=dev, mesh=mesh)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MESH_NEW))
+        clock = CollectiveClock()
+        torch.cuda.synchronize()
+        spmm_cuda.launches = 0
+        ticks, tick_ms, prefills = 0, [], 0
+        t0 = time.perf_counter()
+        with clock if run == 1 else contextlib.nullcontext():
+            while eng.queue or eng.active:
+                admits = min(len(eng.queue), len(eng._free_slots()))
+                t = time.perf_counter()
+                eng.step()
+                if not admits:
+                    tick_ms.append((time.perf_counter() - t) * 1e3)
+                prefills += admits
+                ticks += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs.append({"tokens": {r.rid: [int(x) for x in r.out_tokens] for r in eng.done},
+                     "launches": spmm_cuda.launches, "ticks": ticks, "prefills": prefills,
+                     "wall": wall, "tick_ms": tick_ms,
+                     "collective_s": clock.seconds, "collectives": clock.calls})
+        del eng
+    peak = torch.cuda.max_memory_allocated()
+    # the one-card check's mesh side
+    b, s, s_max = MESH_CHECK
+    prompt, nxt = mesh_check_inputs(cfg, dev)
+    pstep, info = build_prefill_step(cfg, mesh, s_max, b)
+    dstep, _ = build_decode_step(cfg, mesh, b, s_max)
+    spmm_cuda.launches = 0
+    logits, cache = pstep(model, prompt)
+    torch.cuda.synchronize()
+    check_launches = [spmm_cuda.launches]
+    # numpy crosses the result queue by value (a CPU tensor would be shared by
+    # a handle the exiting rank takes with it); bf16 values are exact in f32
+    cache_host = {k: v.float().cpu().numpy() for k, v in cache.items()}
+    spmm_cuda.launches = 0
+    dlogits, _ = dstep(model, cache, nxt, s)
+    torch.cuda.synchronize()
+    check_launches.append(spmm_cuda.launches)
+    return {"coords": mesh.coords, "init_s": init_s, "weights": weights, "peak": peak,
+            "runs": runs, "check": {"prefill": logits.float().cpu().numpy(),
+                                    "decode": dlogits.float().cpu().numpy(),
+                                    "cache": cache_host, "launches": check_launches,
+                                    "cache_specs": {k: tuple(v) for k, v in
+                                                    info["specs"]["cache"].items()}}}
+
+
+def sharded_moe(dp, tp):
+    """A one-card ``moe_layer`` that routes as a (dp, tp) mesh does: each of
+    the dp batch shards alone, and in "a2a" (S divisible by tp) each of its
+    tp sequence shards alone, every shard with the capacity of its own
+    tokens."""
+    import torch
+
+    from repro_torch.models import moe
+
+    inner = moe.moe_layer
+
+    def layer(params, x, cfg, mode="a2a", mesh=None):
+        B, S, _ = x.shape
+        rows = []
+        for xb in x.split(B // dp):
+            parts = xb.split(S // tp, dim=1) if mode == "a2a" and S % tp == 0 else (xb,)
+            rows.append(torch.cat([inner(params, xs, cfg, mode=mode)[0] for xs in parts], 1))
+        return torch.cat(rows), torch.zeros((), device=x.device)
+
+    return layer
+
+
+def mesh_one_card_check(cfg, ranks):
+    """The mesh's check prefill and decode against one card, in bf16 within
+    MESH_BF16_TOL: the prefill's logits against the one-card model run with
+    ``sharded_moe`` (what "a2a" computes), and the decode's logits against
+    a one-card decode ("dense_ep", each data shard's slots routed alone)
+    from the same cache, assembled from the ranks' slices. Returns the
+    errors."""
+    import torch
+
+    from repro_torch.models import moe, transformer as tfm
+
+    dp, tp = MESH_SHAPE
+    b, s, s_max = MESH_CHECK
+    model = lm_model(cfg, LM_SEED)
+    prompt, nxt = mesh_check_inputs(cfg, "cuda")
+    specs = ranks[0]["check"]["cache_specs"]
+    whole = {}
+    for name, spec in specs.items():  # the ranks' slices put back together
+        blocks = {tuple(r["coords"].values()): torch.as_tensor(r["check"]["cache"][name])
+                  for r in ranks}
+        rows = []
+        for d in range(dp):
+            parts = [blocks[(d, m)] for m in range(tp)]
+            rows.append(torch.cat(parts, spec.index("model")) if "model" in spec else parts[0])
+        whole[name] = (torch.cat(rows, spec.index("data")) if "data" in spec else rows[0]).to(
+            "cuda", cfg.compute_dtype)
+    # what the mesh does not compute: the prefill routing each data shard's
+    # tokens together (logged, to show what the tolerance can see)
+    inner = moe.moe_layer
+    moe.moe_layer = sharded_moe(dp, 1)
+    try:
+        routed_together, _ = tfm.prefill(cfg, model, prompt, s_max)
+    finally:
+        moe.moe_layer = inner
+    moe.moe_layer = sharded_moe(dp, tp)
+    try:
+        want_p, own = tfm.prefill(cfg, model, prompt, s_max)
+        errs = {"cache": max(float((whole[k].float() - own[k].float()).abs().max())
+                             for k in own)}
+        want_d, _ = tfm.decode_step(cfg, model, whole, nxt, s)  # writes position s of whole
+    finally:
+        moe.moe_layer = inner
+    got0 = torch.as_tensor(ranks[0]["check"]["prefill"]).cuda()
+    errs["prefill_routed_together"] = float((got0 - routed_together.float()).abs().max())
+    errs["logit_std"] = float(want_p.float().std())
+    for key, want in (("prefill", want_p), ("decode", want_d)):
+        diff = (torch.as_tensor(ranks[0]["check"][key]).cuda() - want.float()).abs()
+        errs[f"{key}_p99.9"] = float(torch.quantile(diff.flatten()[:1 << 24], 0.999))
+        for r in ranks:
+            got = torch.as_tensor(r["check"][key]).cuda()
+            err = float((got - want.float()).abs().max())
+            errs[key] = max(errs.get(key, 0.0), err)
+            if not torch.allclose(got, want.float(), **MESH_BF16_TOL):
+                raise AssertionError(f"16 {key}: rank {r['coords']} differs from one card, max "
+                                     f"abs err {err} (tolerance {MESH_BF16_TOL})")
+    del model, own, whole
+    torch.cuda.empty_cache()
+    return errs
+
+
+def mesh_phase(backend):
+    """Phase 16: ``mesh_serve_rank`` on a 2 x 2 mesh over ``backend`` (gloo:
+    the four ranks share this card; nccl: one rank per card). Checks that
+    both runs and all ranks give the same tokens (MESH_NEW in-range tokens
+    a request), that every rank counted 2 SpMM launches a MoE layer a
+    model call in each run (prefills + ticks) and in the check, then the
+    one-card check. Logs each rank's init, peak memory, decode-only tick
+    times and the share of run 2 spent inside collectives. Returns the
+    phase's record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import spawn
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=MESH_LAYERS)
+    workdir = Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+    ranks = spawn.run_mesh(mesh_serve_rank, MESH_SHAPE, backend=backend, device="cuda",
+                           args=({"layers": MESH_LAYERS},), timeout_s=MESH_TIMEOUT_S,
+                           workdir=workdir)
+    spawn_s = time.perf_counter() - t_phase
+    tokens = ranks[0]["runs"][0]["tokens"]
+    if sorted(tokens) != list(range(MESH_REQUESTS)) or any(
+            len(v) != MESH_NEW or not all(0 <= x < cfg.vocab for x in v) for v in tokens.values()):
+        raise AssertionError(f"16: every request must get {MESH_NEW} in-range tokens: {tokens}")
+    launches = {}
+    for r in ranks:
+        for i, run in enumerate(r["runs"]):
+            if run["tokens"] != tokens:
+                raise AssertionError(f"16: rank {r['coords']} run {i + 1} gave other tokens")
+            want = 2 * cfg.n_layers * (run["prefills"] + run["ticks"])
+            if run["launches"] != want:
+                raise AssertionError(f"16: rank {r['coords']} run {i + 1}: {run['launches']} SpMM "
+                                     f"launches, want 2 x {cfg.n_layers} x ({run['prefills']} "
+                                     f"prefills + {run['ticks']} ticks) = {want}")
+        if r["check"]["launches"] != [2 * cfg.n_layers] * 2:
+            raise AssertionError(f"16: rank {r['coords']} check launches "
+                                 f"{r['check']['launches']}, want 2 x {cfg.n_layers} a call")
+        launches[str(tuple(r["coords"].values()))] = [run["launches"] for run in r["runs"]] + \
+            r["check"]["launches"]
+    for r in ranks:
+        run1, run2 = r["runs"]
+        log(f"16 rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, weights "
+            f"{r['weights'] / 2**30:.3f} GiB, peak {r['peak'] / 2**30:.3f} GiB; run 1 "
+            f"{run1['wall']:.3f} s, {run1['ticks']} ticks, decode-only tick median "
+            f"{np.median(run1['tick_ms']):.3f} ms (mean {np.mean(run1['tick_ms']):.3f}); run 2 "
+            f"{run2['wall']:.3f} s, tick median {np.median(run2['tick_ms']):.3f} ms, "
+            f"{run2['collectives']} collectives {run2['collective_s']:.3f} s = "
+            f"{100 * run2['collective_s'] / run2['wall']:.2f} % of the run; SpMM launches "
+            f"{launches[str(tuple(r['coords'].values()))]}")
+    t0 = time.perf_counter()
+    errs = mesh_one_card_check(cfg, ranks)
+    log(f"16 one-card check: prefill max abs err {errs['prefill']:.4g} (99.9th percentile "
+        f"{errs['prefill_p99.9']:.4g}), decode from the same cache {errs['decode']:.4g} "
+        f"({errs['decode_p99.9']:.4g}), the one-card prefill's cache against the mesh's "
+        f"{errs['cache']:.4g}, logits' std {errs['logit_std']:.4g}; tolerance {MESH_BF16_TOL}; "
+        f"against a one-card prefill routing each data shard's tokens together (not what "
+        f"the mesh computes) {errs['prefill_routed_together']:.4g}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"16 {OLMOE} ({cfg.n_layers} layers, bf16) on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
+        f"(data x model) mesh over {backend}: {MESH_REQUESTS} requests x {MESH_NEW} tokens, "
+        f"both runs and all ranks the same tokens; spawn {spawn_s:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"backend": backend, "launches_per_rank": launches, "errs": errs,
+            "peak_gib": {str(tuple(r["coords"].values())): r["peak"] / 2**30 for r in ranks},
+            "tick_ms_median": {str(tuple(r["coords"].values())):
+                               float(np.median(r["runs"][0]["tick_ms"])) for r in ranks}}
+
+
+
+
 def main() -> int:
     import argparse
 
@@ -4853,6 +5177,7 @@ def main() -> int:
         log_tuned(f"11c autotune n=2^20, 4 devices, budget {full_b} B (worker process)", t4,
                   host_s)
         tuned_phase_four_cards(t4, N_FULL)
+        mesh_phase("nccl")  # 16: one rank per card
         log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5016,6 +5341,9 @@ def main() -> int:
         p11={"dense_n": N_DENSE, "dense": DENSE_GLOO, "place_count": masked["tri16"]},
         p13={"n": N_SERVE_GLOO, "shapes": GRID_SHAPES, "mcl_host": True})
     per_rank = lambda label: {tag: n for (tag, lab), n in grid_launches.items() if lab == label}
+    torch.cuda.empty_cache()
+    # 16. LM serving on a 2x2 (data, model) mesh: four ranks on this card over gloo
+    p16 = mesh_phase("gloo")
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
     seg_bound, seg_by = bound_ms(seg_bytes, seg_ops)
@@ -5147,6 +5475,8 @@ def main() -> int:
     row["spmm"]["train_library_ms"] = {key: rec["library_ms"] for key, rec in p15b["spmm"].items()}
     row["spmm"]["train_dvals_plain"] = p15b["dvals"]
     row["spmm"]["train_step_profile"] = p15b["profile"]
+    # phase 16's launches per rank: run 1, run 2, the check's prefill and decode
+    row["spmm"]["mesh_2x2_launches_per_rank"] = p16["launches_per_rank"]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models import transformer
+from ..models.common import MODEL_AX, ParamTree, leaf_spec, shard_tensor, unflatten
 from .distsparse import DistSparse
 from .sparse import SparseCOO
 from .specs import PlanFloors
@@ -135,7 +136,8 @@ def _f32(a: np.ndarray, device) -> Tensor:
 
 
 def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any],
-                             device="cuda", master: bool = False) -> transformer.ParamTree:
+                             device="cuda", master: bool = False,
+                             mesh=None) -> transformer.ParamTree:
     """The port's model (``models.transformer``) holding the JAX package's
     parameters ``params`` (its nested dict, leaves as numpy arrays or
     anything ``np.asarray`` takes) for ``cfg``.
@@ -145,14 +147,21 @@ def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any
     ``lm_head``) and an ``"embeds"`` model (no ``embed``) carry over as they
     are. Leaves with ndim > 1 (per layer) go to the compute dtype, or stay
     f32 with ``master`` (the JAX package's f32 masters, cast at use), the
-    rest stay f32. Raises ``ValueError`` as ``_unstacked`` does."""
+    rest stay f32. Raises ``ValueError`` as ``_unstacked`` does. With
+    ``mesh`` (``launch.mesh``): this rank's slice of every leaf under
+    ``transformer.param_specs(cfg, tp)``, cut on the host, so only the
+    slices reach ``device``."""
     flat = _unstacked(cfg, params)
-    model = transformer.init_params(cfg, None, "meta")
     cd = torch.float32 if master else cfg.compute_dtype
-    state = {k: _f32(v, device).to(cd if v.ndim > 1 else torch.float32)
-             for k, v in flat.items()}
-    model.load_state_dict(state, strict=True, assign=True)
-    return model
+    specs = transformer.param_specs(cfg, mesh.shape.get(MODEL_AX, 1)) if mesh is not None else None
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        if specs is not None:
+            t = shard_tensor(t, leaf_spec(specs, name), mesh)
+        return t.to(device, cd if a.ndim > 1 else torch.float32)
+
+    return ParamTree(unflatten({name: leaf(name, a) for name, a in flat.items()}))
 
 
 def opt_state_from_reference(cfg: transformer.ModelConfig, state: Dict[str, Any],

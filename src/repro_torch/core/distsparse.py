@@ -152,7 +152,7 @@ def scatter_to_grid(
     else:
         assert cap >= counts.max(), (cap, int(counts.max()))
 
-    mine = np.flatnonzero(tile_id == grid.rank)  # in input order, as a stable sort
+    mine = np.flatnonzero(tile_id == grid.point_id)  # in input order, as a stable sort
     live = len(mine)
     rows_t = np.full(cap, tm, np.int32)
     cols_t = np.full(cap, tn, np.int32)

@@ -10,7 +10,10 @@ other shape runs one process per grid point over ``torch.distributed``:
 
   * Rank layout: rank ``(i·pc + j)·l + k`` sits at grid point (i, j, k),
     the reference's ``devices.reshape(pr, pc, l)`` and
-    ``distsparse._tile_layout``'s row-major tile id.
+    ``distsparse._tile_layout``'s row-major tile id. A grid read from a
+    mesh (``grid_from_mesh``) keeps the mesh's ranks instead: its
+    ``ranks`` lists the rank at every grid point, and ``point_id`` (not the
+    rank) is the tile id.
   * Subgroups: one per (i, k) for the column axis, one per (j, k) for the
     row axis and one per (i, j) for the layer axis. A subgroup's ranks
     rise with the axis index, so its group rank IS the axis index and a
@@ -27,12 +30,16 @@ other shape runs one process per grid point over ``torch.distributed``:
   * The shift along an axis (``ppermute``, the Cannon ring's step) is an
     ``all_to_all_single`` with uneven splits, which both backends run on
     the tensor's device; a backend that refuses it raises.
+
+The per-axis collectives live in ``AxisCollectives``, which the LM's
+process mesh (``launch.mesh.Mesh``) shares: a mesh sums, gathers and
+exchanges along "data" or "model" by the same rules.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,36 +49,12 @@ Tensor = torch.Tensor
 ROW_AX, COL_AX, LAYER_AX = "gr", "gc", "gl"
 
 
-@dataclasses.dataclass(frozen=True)
-class Grid:
-    pr: int
-    pc: int
-    l: int
-    device: torch.device
-    rank: int = 0
-    # axis -> this rank's subgroup, for the axes of size > 1 (multi-process only)
-    groups: Dict[str, object] = dataclasses.field(
-        default_factory=dict, compare=False, repr=False)
-
-    @property
-    def p(self) -> int:
-        return self.pr * self.pc * self.l
-
-    @property
-    def axis_names(self) -> Tuple[str, str, str]:
-        return (ROW_AX, COL_AX, LAYER_AX)
-
-    @property
-    def coords(self) -> Tuple[int, int, int]:
-        """This process's (row, column, layer) position on the grid."""
-        return (self.rank // (self.pc * self.l), self.rank // self.l % self.pc,
-                self.rank % self.l)
-
-    def axis_size(self, axis: str) -> int:
-        return {ROW_AX: self.pr, COL_AX: self.pc, LAYER_AX: self.l}[axis]
-
-    def axis_index(self, axis: str) -> int:
-        return self.coords[self.axis_names.index(axis)]
+class AxisCollectives:
+    """Collectives along one named axis of a process grid or mesh: the
+    subclass gives ``axis_size(axis)``, ``axis_index(axis)`` and
+    ``groups`` (axis -> this rank's subgroup, whose group rank is the axis
+    index). Float sums are gathered and added in axis order; integer sums
+    and maxima go through ``all_reduce``."""
 
     def _gather(self, x: Tensor, n: int, group) -> Tensor:
         x = x.contiguous()
@@ -90,12 +73,6 @@ class Grid:
         if n == 1:
             return x.unsqueeze(0)
         return self._gather(x, n, self.groups[axis])
-
-    def gather_grid(self, x: Tensor) -> Tensor:
-        """Every process's ``x`` (one shape on all), stacked as (pr, pc, l, ...)."""
-        if self.p == 1:
-            return x.reshape(1, 1, 1, *x.shape)
-        return self._gather(x, self.p, None).reshape(self.pr, self.pc, self.l, *x.shape)
 
     def all_to_all(self, x: Tensor, axis: str) -> Tensor:
         """Exchange the leading-axis blocks of ``x`` along ``axis``: block s
@@ -153,12 +130,65 @@ class Grid:
         y = self.all_to_all(y.reshape(n, y.shape[0] // n, *y.shape[1:]), axis)
         return _sum_in_order(y).movedim(0, dim).contiguous()
 
+
+@dataclasses.dataclass(frozen=True)
+class Grid(AxisCollectives):
+    pr: int
+    pc: int
+    l: int
+    device: torch.device
+    rank: int = 0
+    # axis -> this rank's subgroup, for the axes of size > 1 (multi-process only)
+    groups: Dict[str, object] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+    # the rank at every grid point, (i, j, k) row-major; None: the layout
+    # (i·pc + j)·l + k
+    ranks: Optional[Tuple[int, ...]] = None
+
+    @property
+    def p(self) -> int:
+        return self.pr * self.pc * self.l
+
+    @property
+    def axis_names(self) -> Tuple[str, str, str]:
+        return (ROW_AX, COL_AX, LAYER_AX)
+
+    @property
+    def point_id(self) -> int:
+        """This process's grid point, ``(i·pc + j)·l + k``: its tile id."""
+        return self.rank if self.ranks is None else self.ranks.index(self.rank)
+
+    @property
+    def coords(self) -> Tuple[int, int, int]:
+        """This process's (row, column, layer) position on the grid."""
+        g = self.point_id
+        return (g // (self.pc * self.l), g // self.l % self.pc, g % self.l)
+
+    def axis_size(self, axis: str) -> int:
+        return {ROW_AX: self.pr, COL_AX: self.pc, LAYER_AX: self.l}[axis]
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[self.axis_names.index(axis)]
+
+    def _by_point(self, stacked: Tensor) -> Tensor:
+        """Blocks gathered in rank order, put in grid-point order."""
+        if self.ranks is None:
+            return stacked
+        return stacked[torch.tensor(self.ranks, device=stacked.device)]
+
+    def gather_grid(self, x: Tensor) -> Tensor:
+        """Every process's ``x`` (one shape on all), stacked as (pr, pc, l, ...)."""
+        if self.p == 1:
+            return x.reshape(1, 1, 1, *x.shape)
+        return self._by_point(self._gather(x, self.p, None)).reshape(
+            self.pr, self.pc, self.l, *x.shape)
+
     def psum_all(self, x: Tensor) -> Tensor:
         """Sum of ``x`` over the whole grid."""
         if self.p == 1:
             return x
         if x.is_floating_point():
-            return _sum_in_order(self._gather(x, self.p, None))
+            return _sum_in_order(self._by_point(self._gather(x, self.p, None)))
         return self._reduce(x, dist.ReduceOp.SUM, None)
 
     def pmax_all(self, x: Tensor) -> Tensor:
@@ -221,6 +251,34 @@ def make_grid(pr: int, pc: int, l: int, device="cuda") -> Grid:
         if rank in ranks:
             groups[axis] = group
     return Grid(pr, pc, l, torch.device(device), rank, groups)
+
+
+def grid_from_mesh(mesh, row_axis: str = "data", col_axis: str = "model",
+                   layer_axis: Optional[str] = "pod") -> Grid:
+    """A process mesh (``launch.mesh.Mesh``) read as a SUMMA grid, the
+    reference's production mapping: ``row_axis`` -> grid rows,
+    ``col_axis`` -> columns, ``layer_axis`` -> layers (one layer when the
+    mesh has no such axis). Square per-layer grids only (pr == pc), as in
+    the reference. The grid reuses the mesh's subgroups (a mesh axis's
+    group holds the same ranks as the grid axis it becomes, in the same
+    order) and keeps the mesh's ranks: on a ("pod", "data", "model") mesh
+    rank (pod·data + i)·model + j sits at grid point (i, j, pod), so the
+    grid carries that layout in ``ranks``."""
+    sizes = mesh.shape
+    axes = [row_axis, col_axis] + ([layer_axis] if layer_axis and layer_axis in sizes else [])
+    other = [a for a in sizes if a not in axes and sizes[a] > 1]
+    if other:
+        raise ValueError(f"mesh axes {other} map to no grid axis")
+    pr, pc = sizes[row_axis], sizes[col_axis]
+    l = sizes[layer_axis] if len(axes) == 3 else 1
+    if pr != pc:
+        raise ValueError(f"square per-layer grid required, got {pr}x{pc}")
+    ranks = tuple(mesh.rank_of(dict(zip(axes, (i, j, k))))
+                  for i in range(pr) for j in range(pc) for k in range(l))
+    groups = {g: mesh.groups[a] for g, a in zip((ROW_AX, COL_AX, LAYER_AX), axes)
+              if sizes[a] > 1}
+    return Grid(pr, pc, l, mesh.device, mesh.rank, groups,
+                None if ranks == tuple(range(len(ranks))) else ranks)
 
 
 def square_grid_for(p: int, l: int) -> Tuple[int, int, int]:

@@ -18,6 +18,11 @@ one thread. The backend is the caller's choice: NCCL for one rank per
 card, gloo otherwise. On the card the parent builds every kernel before
 it spawns, so the ranks only load them.
 
+``run_mesh(fn, (data, model), ...)`` starts a process mesh's ranks the same
+way: each builds its mesh with ``launch.mesh.make_debug_mesh`` (rank r
+sits at the row-major point of r over ("data", "model"), or over ("pod",
+"data", "model") for a three-entry shape) and calls ``fn(mesh, *args)``.
+
 ``run`` returns every rank's result, in rank order. If a rank raises, the
 parent raises with the rank's number and traceback; if no result arrives
 within ``timeout_s`` seconds (which also bounds every collective), it
@@ -26,12 +31,13 @@ raises. Either way every rank is stopped before ``run`` returns.
 from __future__ import annotations
 
 import datetime
+import math
 import queue as queue_mod
 import tempfile
 import time
 import traceback
 from pathlib import Path
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,7 +48,17 @@ from ..core.grid import make_grid
 POLL_S = 0.5  # how often the parent checks for a rank that died without a result
 
 
-def _rank_main(rank: int, shape: Tuple[int, int, int], backend: str, device: str,
+def _build(kind: str, shape: Tuple[int, ...], device):
+    """This rank's grid (``kind`` "grid") or mesh ("mesh")."""
+    if kind == "grid":
+        return make_grid(*shape, device=device)
+    from .mesh import make_debug_mesh
+
+    return make_debug_mesh(*shape[-2:], pod=shape[0] if len(shape) == 3 else 0,
+                           device=device)
+
+
+def _rank_main(rank: int, kind: str, shape: Tuple[int, ...], backend: str, device: str,
                init_file: str, timeout_s: float, fn: Callable, args: tuple, results) -> None:
     try:
         if device == "cuda":
@@ -51,12 +67,12 @@ def _rank_main(rank: int, shape: Tuple[int, int, int], backend: str, device: str
         else:
             dev = torch.device(device)
             torch.set_num_threads(1)
-        p = shape[0] * shape[1] * shape[2]
+        p = math.prod(shape)
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", world_size=p, rank=rank,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
-            out = fn(make_grid(*shape, device=dev), *args)
+            out = fn(_build(kind, shape, dev), *args)
         finally:
             dist.destroy_process_group()
     except BaseException:
@@ -71,7 +87,22 @@ def run(fn: Callable, shape: Tuple[int, int, int], *, backend: str, device: str,
     """Run ``fn(grid, *args)`` on every point of a ``shape`` grid, one process
     each; see the module docstring. ``workdir`` holds the rendezvous file (a
     new temporary directory by default)."""
-    p = shape[0] * shape[1] * shape[2]
+    return _run("grid", fn, tuple(shape), backend, device, args, timeout_s, workdir)
+
+
+def run_mesh(fn: Callable, shape: Sequence[int], *, backend: str, device: str,
+             args: tuple = (), timeout_s: float = 600.0,
+             workdir: Optional[Path] = None) -> List[object]:
+    """Run ``fn(mesh, *args)`` on every point of a (data, model) or (pod,
+    data, model) mesh, one process each, as ``run`` does for a grid."""
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a mesh shape is (data, model) or (pod, data, model), got {shape}")
+    return _run("mesh", fn, tuple(shape), backend, device, args, timeout_s, workdir)
+
+
+def _run(kind: str, fn: Callable, shape: Tuple[int, ...], backend: str, device: str,
+         args: tuple, timeout_s: float, workdir: Optional[Path]) -> List[object]:
+    p = math.prod(shape)
     if device == "cuda":
         from ..kernels import _build
 
@@ -81,8 +112,8 @@ def run(fn: Callable, shape: Tuple[int, int, int], *, backend: str, device: str,
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [
-        ctx.Process(target=_rank_main, name=f"grid-rank-{r}", args=(
-            r, shape, backend, device, str(init_file), timeout_s, fn, args, results))
+        ctx.Process(target=_rank_main, name=f"{kind}-rank-{r}", args=(
+            r, kind, shape, backend, device, str(init_file), timeout_s, fn, args, results))
         for r in range(p)
     ]
     out = {}
@@ -106,7 +137,7 @@ def run(fn: Callable, shape: Tuple[int, int, int], *, backend: str, device: str,
                     raise TimeoutError(f"ranks {missing} gave no result in {timeout_s} s")
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of grid {shape} failed:\n{value}")
+                raise RuntimeError(f"rank {rank} of {kind} {shape} failed:\n{value}")
             out[rank] = value
     finally:
         for proc in procs:

@@ -11,6 +11,20 @@ and the softmax runs in f32 and is cast to the compute dtype, none of which
 The cache branch writes the new keys and values into the given cache
 tensors in place (the JAX package returns new arrays): a decode tick then
 copies no cache.
+
+Tensor parallelism over a mesh's "model" axis (``mesh`` given, ``params``
+this rank's slices under ``attention_specs``), Megatron style: q/k/v hold
+this rank's heads, ``wo`` its rows of those heads, and the block's output
+is one sum over "model" in axis order, of f32 partials rounded to the
+compute dtype once (a bf16 model then rounds as one device does). A head
+dimension that does not divide the axis stays whole (MQA's single kv
+head: every rank computes it and picks the kv head of each of its query
+heads). When the cache's kv
+heads cannot split, ``cache_specs`` splits its sequence instead
+(``seq_sharded``): each rank writes the positions it holds, and attention
+combines the ranks' partial softmaxes (flash-decoding): every query head
+on every rank, the maximum over "model", then one sum of the rescaled
+numerators and denominators. The cache is never gathered.
 """
 from __future__ import annotations
 
@@ -18,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .common import apply_rope, dense_init, soft_cap
+from .common import MODEL_AX, Spec, apply_rope, dense_init, soft_cap
 
 Tensor = torch.Tensor
 
@@ -53,6 +67,20 @@ def init_attention(generator, d_model: int, n_heads: int, kv_heads: int, head_di
             wo[g * per_new: g * per_new + per_old] = params["wo"][g * per_old: (g + 1) * per_old]
         params["wq"], params["wo"] = wq, wo
     return params
+
+
+def attention_specs(n_heads: int = 0, kv_heads: int = 0, tp: int = 1) -> Dict[str, Spec]:
+    """TP specs with divisibility fallbacks: a head dimension that does not
+    divide the model axis stays whole (MQA kv=1, starcoder2's 36 heads at
+    tp=16)."""
+    q_ax = MODEL_AX if tp > 1 and n_heads % tp == 0 else None
+    kv_ax = MODEL_AX if tp > 1 and kv_heads % tp == 0 else None
+    return {
+        "wq": Spec(None, q_ax, None),
+        "wk": Spec(None, kv_ax, None),
+        "wv": Spec(None, kv_ax, None),
+        "wo": Spec(q_ax, None, None),
+    }
 
 
 def _repeat_kv(x: Tensor, n_rep: int) -> Tensor:
@@ -92,6 +120,9 @@ def attend(
     kv_cache: Optional[Tuple[Tensor, Tensor]] = None,  # (B, S_max, kvH, hd) x2
     cache_index=None,  # int: current fill level
     query_scale: Optional[float] = None,
+    mesh=None,
+    specs: Optional[Dict[str, Spec]] = None,
+    seq_sharded: bool = False,
 ) -> Tuple[Tensor, Optional[Tuple[Tensor, Tensor]]]:
     """Returns (output (B,S,D), the kv cache written in place, or None).
 
@@ -100,12 +131,19 @@ def attend(
     ``S_max - S``, as ``jax.lax.dynamic_update_slice_in_dim`` clamps it) and
     the block attends over the whole cache, masked to positions <=
     ``cache_index`` + its own offset.
+
+    On a mesh (see the module docstring) ``params`` are this rank's slices
+    under ``specs`` (``attention_specs``) and the cache this rank's slice:
+    its kv heads, or with ``seq_sharded`` every kv head over its share of
+    the positions.
     """
     B, S, D = x.shape
-    n_heads = params["wq"].shape[1]
-    kv_heads = params["wk"].shape[1]
-    hd = params["wq"].shape[2]
-    n_rep = n_heads // kv_heads
+    tp = mesh.axis_size(MODEL_AX) if mesh is not None else 1
+    r = mesh.axis_index(MODEL_AX) if tp > 1 else 0
+    q_sh = tp > 1 and specs["wq"][1] == MODEL_AX
+    kv_sh = tp > 1 and specs["wk"][1] == MODEL_AX
+    h_loc, kv_loc, hd = params["wq"].shape[1], params["wk"].shape[1], params["wq"].shape[2]
+    n_rep = (h_loc * (tp if q_sh else 1)) // (kv_loc * (tp if kv_sh else 1))
     scale = query_scale if query_scale is not None else hd ** -0.5
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
@@ -114,27 +152,79 @@ def attend(
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
-    if kv_cache is None:
-        kf = _repeat_kv(k, n_rep)
-        vf = _repeat_kv(v, n_rep)
-        logits = torch.einsum("bqhk,bshk->bhqs", q, kf) * scale
-        mask = _causal_mask(S, S, 0, window, x.device)
-        new_cache = None
+    if seq_sharded:
+        out = _attend_seq_sharded(mesh, q, k, v, kv_cache, int(cache_index), n_rep, scale,
+                                  window, attn_softcap, q_sh, x.dtype)
+        new_cache = kv_cache
     else:
-        ck, cv = kv_cache
-        s_max = ck.shape[1]
-        if S > s_max:
-            raise ValueError(f"a block of {S} positions does not fit a cache of {s_max}")
-        index = int(cache_index)
-        start = min(max(index, 0), s_max - S)
-        ck[:, start:start + S] = k.to(ck.dtype)
-        cv[:, start:start + S] = v.to(cv.dtype)
-        kf = _repeat_kv(ck, n_rep)
-        vf = _repeat_kv(cv, n_rep)
-        logits = torch.einsum("bqhk,bshk->bhqs", q, kf.to(q.dtype)) * scale
-        mask = _causal_mask(S, s_max, index, window, x.device)
-        new_cache = (ck, cv)
+        if q_sh and not kv_sh:  # every kv head here: the one of each local query head
+            kv_of = (r * h_loc + torch.arange(h_loc, device=x.device)) // n_rep
+            per_head = lambda t: t[:, :, kv_of]  # noqa: E731
+        else:
+            per_head = lambda t: _repeat_kv(t, n_rep)  # noqa: E731
+        if kv_cache is None:
+            kf, vf = per_head(k), per_head(v)
+            logits = torch.einsum("bqhk,bshk->bhqs", q, kf) * scale
+            mask = _causal_mask(S, S, 0, window, x.device)
+            new_cache = None
+        else:
+            ck, cv = kv_cache
+            s_max = ck.shape[1]
+            if S > s_max:
+                raise ValueError(f"a block of {S} positions does not fit a cache of {s_max}")
+            index = int(cache_index)
+            start = min(max(index, 0), s_max - S)
+            ck[:, start:start + S] = k.to(ck.dtype)
+            cv[:, start:start + S] = v.to(cv.dtype)
+            kf, vf = per_head(ck), per_head(cv)
+            logits = torch.einsum("bqhk,bshk->bhqs", q, kf.to(q.dtype)) * scale
+            mask = _causal_mask(S, s_max, index, window, x.device)
+            new_cache = (ck, cv)
+        out = _softmax_out(logits, mask, vf, x.dtype, attn_softcap)
 
-    out = _softmax_out(logits, mask, vf, x.dtype, attn_softcap)
-    y = torch.einsum("bqhk,hkd->bqd", out, params["wo"])
-    return y, new_cache
+    if q_sh:  # this rank's heads' share, summed in f32 and rounded once
+        y = torch.einsum("bqhk,hkd->bqd", out.float(), params["wo"].float())
+        return mesh.psum(y, MODEL_AX).to(x.dtype), new_cache
+    return torch.einsum("bqhk,hkd->bqd", out, params["wo"]), new_cache
+
+
+def _attend_seq_sharded(mesh, q, k, v, kv_cache, index: int, n_rep: int, scale, window,
+                        attn_softcap, q_sh: bool, dtype) -> Tensor:
+    """Attention over a cache whose positions are split over "model" (every
+    kv head on every rank): the block's keys and values go to the ranks
+    holding their positions, each rank scores every query head against its
+    positions, and the partial softmaxes combine over "model" (one maximum,
+    one sum of numerators and denominators). Returns this rank's query
+    heads' output (B, S, H_loc, hd)."""
+    B, S = q.shape[:2]
+    h_loc = q.shape[2]
+    tp, r = mesh.axis_size(MODEL_AX), mesh.axis_index(MODEL_AX)
+    ck, cv = kv_cache
+    s_loc = ck.shape[1]
+    s_max, off = s_loc * tp, r * s_loc
+    if S > s_max:
+        raise ValueError(f"a block of {S} positions does not fit a cache of {s_max}")
+    start = min(max(index, 0), s_max - S)
+    lo, hi = max(start, off), min(start + S, off + s_loc)
+    if lo < hi:
+        ck[:, lo - off:hi - off] = k[:, lo - start:hi - start].to(ck.dtype)
+        cv[:, lo - off:hi - off] = v[:, lo - start:hi - start].to(cv.dtype)
+    if q_sh:  # every query head
+        q = torch.cat(tuple(mesh.all_gather(q, MODEL_AX)), dim=2)
+    kf, vf = _repeat_kv(ck, n_rep), _repeat_kv(cv, n_rep)
+    logits = soft_cap(torch.einsum("bqhk,bshk->bhqs", q, kf.to(q.dtype)) * scale, attn_softcap)
+    qpos = torch.arange(S, device=q.device)[:, None] + index
+    kpos = torch.arange(off, off + s_loc, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask[None, None], logits, -1e30).float()
+    top = mesh.pmax(logits.amax(-1), MODEL_AX)  # (B, H, S): a live position somewhere
+    e = torch.exp(logits - top[..., None])
+    num = torch.einsum("bhqs,bshk->bqhk", e, vf.float())
+    den = e.sum(-1).permute(0, 2, 1)[..., None]  # (B, S, H, 1)
+    both = mesh.psum(torch.cat([num, den], dim=-1), MODEL_AX)
+    out = (both[..., :-1] / both[..., -1:]).to(dtype)
+    if q_sh:
+        out = out[:, :, r * h_loc:(r + 1) * h_loc]
+    return out

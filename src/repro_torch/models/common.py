@@ -10,16 +10,162 @@ model function takes either a ``ParamTree`` or a plain dict of tensors.
 Initialisers take an explicit ``torch.Generator``: the port's seeded init
 draws other numbers than ``jax.random`` from the same seed, so parity tests
 carry the JAX package's weights over (``core.convert.lm_params_from_reference``).
+
+Sharding over a process mesh (``launch.mesh``) is written as the JAX
+package writes it: a tree of ``Spec`` (the port's ``PartitionSpec``: one
+entry a tensor dimension, each an axis name, a tuple of axis names or
+None), made by each module's ``*_specs`` function, with the ``layers``
+subtree stacked (a leading None for the layer axis). ``shard_tree`` cuts
+this rank's slice of every parameter, ``gather_tree`` puts the whole
+tensors back together on every rank.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 Tensor = torch.Tensor
+
+# Mesh axis conventions (launch/mesh.py): "pod" and "data" are data parallel,
+# "model" tensor and expert parallel.
+MODEL_AX = "model"
+
+
+class Spec(tuple):
+    """A tensor's sharding over a mesh, as ``jax.sharding.PartitionSpec``:
+    ``Spec(None, "model")`` keeps dimension 0 whole and splits dimension 1
+    over "model"; an entry may also be a tuple of axes (split over their
+    row-major product; a tuple of one axis is that axis, as in a
+    ``PartitionSpec``). Dimensions past the last entry are whole."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, (list, tuple)) and len(e) == 1 else e for e in entries))
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple.__repr__(self)}"
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """Axes the global batch is sharded over."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def batch_shard(mesh, batch: int):
+    """The batch dimension's spec entry: the data axes when ``batch``
+    divides their size, else None (replicated, as the JAX package's step
+    builders replicate a batch of 1)."""
+    dp = batch_axes(mesh)
+    size = math.prod(mesh.shape[a] for a in dp)
+    return dp if batch % size == 0 else None
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def shard_index(mesh, entry) -> Tuple[int, int]:
+    """(this rank's index, number of parts) of a dimension split over
+    ``entry``'s axes, row-major."""
+    index, n = 0, 1
+    for a in _axes(entry):
+        index = index * mesh.axis_size(a) + mesh.axis_index(a)
+        n *= mesh.axis_size(a)
+    return index, n
+
+
+def shard_tensor(x: Tensor, spec, mesh) -> Tensor:
+    """This rank's slice of ``x`` under ``spec`` (a copy, so the whole
+    tensor can be freed; ``x`` itself when nothing is split)."""
+    idx = []
+    for d, entry in enumerate(spec):
+        i, n = shard_index(mesh, entry)
+        if n > 1 and x.shape[d] % n:
+            raise ValueError(f"dimension {d} of {tuple(x.shape)} does not split in {n}")
+        m = x.shape[d] // n
+        idx.append(slice(i * m, (i + 1) * m))
+    if all(sl == slice(0, x.shape[d]) for d, sl in enumerate(idx)):
+        return x
+    return x[tuple(idx)].clone()
+
+
+def gather_tensor(x: Tensor, spec, mesh) -> Tensor:
+    """The whole tensor from every rank's slice under ``spec``."""
+    for d, entry in enumerate(spec):
+        for a in reversed(_axes(entry)):  # the minor axis first
+            if mesh.axis_size(a) > 1:
+                x = torch.cat(tuple(mesh.all_gather(x, a)), dim=d)
+    return x
+
+
+def leaf_spec(specs, name: str) -> "Spec":
+    """The spec of the parameter ``name`` (``"layers.3.attn.wq"``) in a
+    spec tree whose ``layers`` are stacked: the layer's entry is dropped."""
+    node, stacked = specs, False
+    for part in name.split("."):
+        if part.isdigit():
+            stacked = True
+            continue
+        node = node[part]
+    if stacked:
+        if node[0] is not None:
+            raise ValueError(f"{name}: a stacked spec {node} splits the layer axis")
+        return Spec(*node[1:])
+    return Spec(*node)
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``{"a.0.b": x}`` -> ``{"a": [{"b": x}]}``: dotted names as nested
+    dicts, all-digit keys as lists."""
+    root: Dict[str, Any] = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(root)
+
+
+def shard_tree(model, specs, mesh) -> "ParamTree":
+    """This rank's slice of every parameter of ``model`` (a ``ParamTree``)
+    under the spec tree ``specs``, as a ``ParamTree`` of the same names."""
+    return ParamTree(unflatten({name: shard_tensor(p.detach(), leaf_spec(specs, name), mesh)
+                                for name, p in model.named_parameters()}))
+
+
+def gather_tree(model, specs, mesh) -> "ParamTree":
+    """The inverse of ``shard_tree``: every parameter whole, on every rank."""
+    return ParamTree(unflatten({name: gather_tensor(p.detach(), leaf_spec(specs, name), mesh)
+                                for name, p in model.named_parameters()}))
+
+
+def tree_specs_like(params, spec_fn: Callable[[str, Tensor], Spec]) -> Dict[str, Any]:
+    """The spec tree of ``params`` (a ``ParamTree`` or nested dict/list):
+    ``spec_fn(name, tensor)`` for every leaf, named by its dotted path."""
+    def walk(node, path):
+        if isinstance(node, torch.Tensor):
+            return spec_fn(path, node)
+        if isinstance(node, (list, tuple, nn.ModuleList)):
+            return [walk(v, f"{path}.{i}") for i, v in enumerate(node)]
+        return {k: walk(v, f"{path}.{k}" if path else k) for k, v in node.items()}
+
+    return walk(params, "")
+
 
 
 class ParamTree(nn.Module):

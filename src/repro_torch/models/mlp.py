@@ -1,5 +1,11 @@
 """Feed-forward blocks: SwiGLU (llama-family), GeGLU (gemma2) and GELU
-(starcoder-family)."""
+(starcoder-family).
+
+On a mesh (``mesh`` given, ``params`` this rank's slices under
+``mlp_specs``) the block is Megatron's: ``w_in``/``w_gate`` hold this
+rank's d_ff columns, ``w_out`` the same rows, and the output is one sum
+over "model" in axis order, of f32 partials rounded once. A d_ff that does not divide the axis stays
+whole, and then no sum is taken."""
 from __future__ import annotations
 
 from typing import Dict
@@ -7,7 +13,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init
+from .common import MODEL_AX, Spec, dense_init
 
 Tensor = torch.Tensor
 
@@ -25,9 +31,18 @@ def init_mlp(generator, d_model: int, d_ff: int, act: str, dtype=torch.float32,
     return params
 
 
-def mlp(params, x: Tensor, act: str) -> Tensor:
+def mlp_specs(act: str, d_ff: int = 0, tp: int = 1) -> Dict[str, Spec]:
+    ax = MODEL_AX if tp > 1 and d_ff % tp == 0 else None
+    specs = {"w_in": Spec(None, ax), "w_out": Spec(ax, None)}
+    if act in GATED:
+        specs["w_gate"] = Spec(None, ax)
+    return specs
+
+
+def mlp(params, x: Tensor, act: str, mesh=None, specs=None) -> Tensor:
     """``"gelu"`` is the tanh form, as ``jax.nn.gelu``'s default
-    (``approximate=True``) is in the JAX package."""
+    (``approximate=True``) is in the JAX package. ``mesh`` and ``specs``:
+    see the module docstring."""
     h = torch.einsum("bsd,df->bsf", x, params["w_in"])
     if act == "swiglu":
         g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
@@ -39,4 +54,7 @@ def mlp(params, x: Tensor, act: str) -> Tensor:
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(act)
+    if mesh is not None and specs["w_out"][0] == MODEL_AX and mesh.axis_size(MODEL_AX) > 1:
+        y = torch.einsum("bsf,fd->bsd", h.float(), params["w_out"].float())
+        return mesh.psum(y, MODEL_AX).to(x.dtype)
     return torch.einsum("bsf,fd->bsd", h, params["w_out"])

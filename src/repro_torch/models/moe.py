@@ -14,10 +14,26 @@ skips). Which assignments are dropped follows the exclusive cumsum over
 token-major (T·k) assignments; ``top_k`` breaks ties toward the lower
 expert index, as ``lax.top_k`` does.
 
-Expert parallelism: the JAX package's "a2a" (prefill) and "dense_ep"
-(decode) modes shard experts over a mesh's "model" axis. The port runs on
-one card, where both reduce to the same local computation; ``mode`` is kept
-so callers name the mode the JAX package would use.
+Expert parallelism over a mesh's "model" axis (``mesh`` given, ``params``
+this rank's slices under ``moe_specs``: E/tp experts, the shared experts'
+F/tp columns), the JAX package's two modes:
+
+  * "a2a" (prefill): the sequence is split over "model" and each rank
+    routes its own tokens, with the capacity of its local T; the SpMM
+    dispatches them into (E, cap, D) buckets, one all-to-all sends each
+    expert's buckets to the rank holding it, the local experts run on
+    (E/tp, tp·cap, D), a second all-to-all brings the results back, the
+    SpMM combines, and the sequence is gathered over "model" again. The
+    expert-parallel analogue of the paper's AllToAll-Fiber.
+  * "dense_ep" (decode, and "a2a" when S does not divide tp): every rank
+    routes all its tokens, runs its slice of the experts on its slice of
+    the buckets, and the buckets are summed over "model" (the slices are
+    disjoint, so the sum is a gather), then combined.
+
+Tokens are routed on the rank's own tokens in both, so a sharded layer
+drops other assignments than one device would (capacity of the local T),
+exactly as the JAX package's does. The aux loss is averaged over "model"
+and the data axes. On one device both modes are one local computation.
 """
 from __future__ import annotations
 
@@ -29,7 +45,7 @@ import torch.nn.functional as F
 
 from ..core import local_spgemm
 from ..core.sparse import SparseCOO
-from .common import dense_init
+from .common import MODEL_AX, Spec, batch_axes, dense_init
 
 Tensor = torch.Tensor
 
@@ -68,6 +84,24 @@ def init_moe(generator, d_model: int, cfg: MoEConfig, dtype=torch.float32,
             "w_out": init((fs, d_model)),
         }
     return params
+
+
+def moe_specs(cfg: MoEConfig, tp: int = 1) -> Dict:
+    e_ax = MODEL_AX if tp > 1 and cfg.n_experts % tp == 0 else None
+    specs = {
+        "router": Spec(None, None),
+        "w_in": Spec(e_ax, None, None),
+        "w_gate": Spec(e_ax, None, None),
+        "w_out": Spec(e_ax, None, None),
+    }
+    if cfg.n_shared:
+        fs_ax = MODEL_AX if tp > 1 and (cfg.n_shared * cfg.d_expert) % tp == 0 else None
+        specs["shared"] = {
+            "w_in": Spec(None, fs_ax),
+            "w_gate": Spec(None, fs_ax),
+            "w_out": Spec(fs_ax, None),
+        }
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -168,28 +202,83 @@ def _expert_ffn(buf: Tensor, w_in: Tensor, w_gate: Tensor, w_out: Tensor) -> Ten
     return torch.einsum("ecf,efd->ecd", F.silu(g) * h, w_out)
 
 
-def _shared_ffn(params, x: Tensor) -> Tensor:
+def _shared_ffn(params, x: Tensor, mesh=None) -> Tensor:
+    """The shared experts' FFN; with ``mesh`` the weights are this rank's
+    F/tp slice and the output is summed over "model"."""
     h = x @ params["w_in"]
     g = x @ params["w_gate"]
-    return (F.silu(g) * h) @ params["w_out"]
+    if mesh is None:
+        return (F.silu(g) * h) @ params["w_out"]
+    out = (F.silu(g) * h).float() @ params["w_out"].float()  # f32 partials, rounded once
+    return mesh.psum(out, MODEL_AX).to(x.dtype)
 
 
-def moe_layer(params, x: Tensor, cfg: MoEConfig, mode: str = "a2a") -> Tuple[Tensor, Tensor]:
-    """Returns (output (B,S,D), aux loss scalar). ``mode`` is the JAX
-    package's expert-parallel mode ("a2a" or "dense_ep"); on one card both
-    are this local computation."""
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    B, S, D = x.shape
-    T = B * S
-    xf = x.reshape(T, D)
+def _routed(params, xf: Tensor, cfg: MoEConfig, experts):
+    """Route ``xf`` (T, D), dispatch through the SpMM, map the (E, cap, D)
+    buckets through ``experts`` (to every expert's output, wherever it
+    ran), combine through the SpMM: (out (T, D), aux)."""
+    T = xf.shape[0]
     top_p, top_e, aux = _route(xf, params["router"], cfg)
     cap = _capacity(T, cfg)
     eid, slot, keep = _dispatch_indices(top_e, cfg, cap)
     buf = _dispatch(xf, eid, slot, keep, cfg, cap)  # (E, cap, D)
-    y = _expert_ffn(buf, params["w_in"], params["w_gate"], params["w_out"])
-    out = _combine(y, top_p, eid, slot, keep, T, cfg, cap)
+    y = experts(buf)
+    return _combine(y, top_p, eid, slot, keep, T, cfg, cap), aux
+
+
+def moe_layer(params, x: Tensor, cfg: MoEConfig, mode: str = "a2a", mesh=None
+              ) -> Tuple[Tensor, Tensor]:
+    """Returns (output (B,S,D), aux loss scalar). ``mode`` is the JAX
+    package's expert-parallel mode ("a2a" or "dense_ep"); without a mesh
+    (or with a "model" axis of 1) both are one local computation. On a
+    mesh, ``x`` is this rank's share of the batch and the output keeps
+    that shape (see the module docstring)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    B, S, D = x.shape
+    tp = mesh.axis_size(MODEL_AX) if mesh is not None else 1
     shared = params.get("shared")
-    if shared is not None:
-        out = out + _shared_ffn(shared, xf)
-    return out.reshape(B, S, D), aux
+    ffn = lambda buf: _expert_ffn(buf, params["w_in"], params["w_gate"],  # noqa: E731
+                                  params["w_out"])
+    if tp == 1:
+        out, aux = _routed(params, x.reshape(B * S, D), cfg, ffn)
+        if shared is not None:
+            out = out + _shared_ffn(shared, x.reshape(B * S, D))
+        out = out.reshape(B, S, D)
+    else:
+        E = cfg.n_experts
+        if E % tp:
+            raise ValueError(f"{E} experts do not split over a model axis of {tp}")
+        e_loc, r = E // tp, mesh.axis_index(MODEL_AX)
+        shared_mesh = mesh if (cfg.n_shared * cfg.d_expert) % tp == 0 else None
+        if mode == "a2a" and S % tp == 0:
+            s_loc = S // tp
+            xf = x[:, r * s_loc:(r + 1) * s_loc].reshape(B * s_loc, D)
+
+            def experts(buf):
+                cap = buf.shape[1]
+                mine = mesh.all_to_all(buf.reshape(tp, e_loc, cap, D), MODEL_AX)
+                y = ffn(mine.transpose(0, 1).reshape(e_loc, tp * cap, D))
+                y = y.reshape(e_loc, tp, cap, D).transpose(0, 1)
+                return mesh.all_to_all(y, MODEL_AX).reshape(E, cap, D)
+
+            out, aux = _routed(params, xf, cfg, experts)
+            if shared is not None:
+                out = out + _shared_ffn(shared, xf, shared_mesh)
+            out = torch.cat(tuple(mesh.all_gather(out.reshape(B, s_loc, D), MODEL_AX)), dim=1)
+        else:  # dense_ep
+            xf = x.reshape(B * S, D)
+
+            def experts(buf):
+                y = ffn(buf[r * e_loc:(r + 1) * e_loc])
+                return mesh.all_gather(y, MODEL_AX).reshape(E, *buf.shape[1:])
+
+            out, aux = _routed(params, xf, cfg, experts)
+            if shared is not None:
+                out = out + _shared_ffn(shared, xf, shared_mesh)
+            out = out.reshape(B, S, D)
+    if mesh is not None:
+        for ax in (MODEL_AX,) + batch_axes(mesh):
+            if mesh.axis_size(ax) > 1:
+                aux = mesh.psum(aux, ax) / mesh.axis_size(ax)
+    return out, aux

@@ -15,7 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .common import dense_init, rms_norm
+from .common import MODEL_AX, Spec, dense_init, rms_norm
 
 Tensor = torch.Tensor
 
@@ -58,6 +58,28 @@ def init_mamba2(generator, d_model: int, cfg: SSMConfig, dtype=torch.float32,
         "conv_w": init((cfg.d_conv, conv_dim)),
         "norm": torch.zeros((di,), **f32),
         "w_out": init((di, d_model)),
+    }
+
+
+def mamba2_specs(cfg: SSMConfig, d_model: int = 0, tp: int = 1) -> Dict[str, Spec]:
+    """The JAX package's TP specs (heads and d_inner over "model"; B/C and
+    the mixed conv stay whole). The port does not run a sharded SSM yet:
+    the model raises on a mesh with tp > 1 (ROADMAP)."""
+    di = cfg.d_inner(d_model) if d_model else 0
+    nh = cfg.n_heads(d_model) if d_model else 0
+    di_ax = MODEL_AX if tp > 1 and di % tp == 0 and di > 0 else None
+    h_ax = MODEL_AX if tp > 1 and nh % tp == 0 and nh > 0 else None
+    return {
+        "w_in_z": Spec(None, di_ax),
+        "w_in_x": Spec(None, di_ax),
+        "w_bc": Spec(None, None),
+        "w_dt": Spec(None, h_ax),
+        "dt_bias": Spec(h_ax),
+        "A_log": Spec(h_ax),
+        "D_skip": Spec(h_ax),
+        "conv_w": Spec(None, None),
+        "norm": Spec(di_ax),
+        "w_out": Spec(di_ax, None),
     }
 
 

@@ -25,6 +25,23 @@ where the JAX package wraps the same bodies in ``jax.checkpoint``.
 Serving runs under ``torch.inference_mode()``. Caches keep the JAX
 package's stacked layout (a leading layer axis, or one entry per
 application of the hybrid's shared block) and are written in place.
+
+Serving on a process mesh (``launch.mesh``; ``prefill``, ``decode_step``
+and ``init_cache`` take ``mesh``): the model is this rank's slices under
+``param_specs(cfg, tp)`` (``shard_tree``, ``init_params(..., mesh=)`` or
+``core.convert.lm_params_from_reference(..., mesh=)``) and the cache its
+slice under ``cache_specs``. Inputs and logits are global: the batch is
+split over the data axes when it divides them (else every data rank runs
+all of it, as the JAX package's step builders replicate a batch of 1),
+and the logits are gathered over "model" (vocab) and the data axes once.
+Over "model": an untied embedding splits its hidden dimension (gathered
+after the lookup), a tied one its vocab (a masked lookup, summed);
+attention and the MLP are Megatron's, the MoE expert parallel ("a2a" at
+prefill, "dense_ep" at decode), and the residual stream stays whole on
+every rank: the JAX package's ``_act_constraint`` and
+``_gather_for_attn`` act only under ``act_sharding="seq"``, which no
+config sets, and are not ported. The ssm and hybrid families run on a
+mesh only with a "model" axis of 1 (ROADMAP).
 """
 from __future__ import annotations
 
@@ -39,7 +56,9 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import ParamTree, dense_init, embed_init, rms_norm, soft_cap
+from .common import (MODEL_AX, ParamTree, Spec, batch_axes, batch_shard, dense_init,
+                     embed_init, gather_tensor, leaf_spec, rms_norm, shard_index, shard_tensor,
+                     soft_cap)
 
 Tensor = torch.Tensor
 
@@ -164,20 +183,34 @@ def _attn_block_init(cfg: ModelConfig, generator, dtype, device, pad_heads_to=0)
                                    cfg.hdim, dtype, device, pad_heads_to=pad_heads_to)
 
 
-def init_params(cfg: ModelConfig, generator, device="cuda", master: bool = False) -> ParamTree:
+def init_params(cfg: ModelConfig, generator, device="cuda", master: bool = False,
+                mesh=None) -> ParamTree:
     """The port's seeded init (other numbers than the JAX package's from
     the same seed). ``generator`` lives on ``device``; on the "meta" device
     (generator None) this gives the model's structure without memory.
     ``master`` keeps every parameter in f32 (the training model: the
-    compute dtype is applied at use)."""
+    compute dtype is applied at use). With ``mesh`` each block is drawn
+    whole (the same model for one seed on any mesh) and cut to this
+    rank's slices under ``param_specs`` at once, so no rank holds the
+    whole model."""
     dtype = torch.float32 if master else cfg.compute_dtype
+    specs = param_specs(cfg, _tp(mesh)) if mesh is not None else None
+
+    def cut(tree, name):
+        if specs is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: cut(v, f"{name}.{k}") for k, v in tree.items()}
+        return shard_tensor(tree, leaf_spec(specs, name), mesh)
+
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)  # noqa: E731
     params: Dict[str, Any] = {}
     if cfg.input_mode == "tokens":
-        params["embed"] = embed_init(generator, (cfg.padded_vocab, cfg.d_model), dtype, device)
+        params["embed"] = cut(embed_init(generator, (cfg.padded_vocab, cfg.d_model), dtype,
+                                         device), "embed")
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.padded_vocab),
-                                       dtype=dtype, device=device)
+        params["lm_head"] = cut(dense_init(generator, (cfg.d_model, cfg.padded_vocab),
+                                           dtype=dtype, device=device), "lm_head")
     params["final_norm"] = zeros()
 
     layers: List[Dict[str, Any]] = []
@@ -198,15 +231,88 @@ def init_params(cfg: ModelConfig, generator, device="cuda", master: bool = False
                   "mamba": ssm_mod.init_mamba2(generator, cfg.d_model, cfg.ssm, dtype, device)}
         else:
             raise ValueError(cfg.family)
-        layers.append(lp)
+        layers.append(cut(lp, f"layers.{len(layers)}"))
     params["layers"] = layers
     if cfg.family == "hybrid":
-        params["shared_block"] = {
+        params["shared_block"] = cut({
             "ln1": zeros(), "ln2": zeros(),
             "attn": _attn_block_init(cfg, generator, dtype, device),
             "mlp": mlp_mod.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype, device),
-        }
+        }, "shared_block")
     return _as_model(cfg, params, master)
+
+
+def param_specs(cfg: ModelConfig, tp: int = 1) -> Dict[str, Any]:
+    """The spec tree of the parameters (``layers`` stacked, a leading None),
+    the JAX package's: tp is the "model" axis's size, and a dimension that
+    does not divide it stays whole."""
+    d_ax = MODEL_AX if tp > 1 and cfg.d_model % tp == 0 else None
+    v_ax = MODEL_AX if tp > 1 and cfg.padded_vocab % tp == 0 else None
+    specs: Dict[str, Any] = {"final_norm": Spec(None)}
+    if cfg.input_mode == "tokens":
+        # untied: split the hidden dimension (the lookup needs no sum);
+        # tied: split the vocab, so the unembed keeps the logits vocab-split
+        specs["embed"] = Spec(v_ax, None) if cfg.tie_embeddings else Spec(None, d_ax)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Spec(None, v_ax)
+
+    def stack(node):  # prepend the (whole) layer axis
+        if isinstance(node, Spec):
+            return Spec(None, *node)
+        return {k: stack(v) for k, v in node.items()}
+
+    if cfg.family == "attn":
+        lp = {"ln1": Spec(None), "ln2": Spec(None),
+              "attn": attn_mod.attention_specs(cfg.eff_heads, cfg.kv_heads, tp)}
+        if cfg.use_post_norms:
+            lp["ln1_post"] = Spec(None)
+            lp["ln2_post"] = Spec(None)
+        if cfg.moe:
+            lp["moe"] = moe_mod.moe_specs(cfg.moe, tp)
+        else:
+            lp["mlp"] = mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp)
+        specs["layers"] = stack(lp)
+    else:
+        specs["layers"] = stack({"ln": Spec(None),
+                                 "mamba": ssm_mod.mamba2_specs(cfg.ssm, cfg.d_model, tp)})
+        if cfg.family == "hybrid":
+            specs["shared_block"] = {
+                "ln1": Spec(None),
+                "ln2": Spec(None),
+                "attn": attn_mod.attention_specs(cfg.n_heads, cfg.kv_heads, tp),
+                "mlp": mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp),
+            }
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, mesh, batch: Optional[int] = None,
+                s_max: Optional[int] = None) -> Dict[str, Any]:
+    """The cache's spec tree, the JAX package's: the batch over the data
+    axes (when it divides them), kv heads over "model"; when the kv heads
+    cannot split (MQA, kv < tp) the SEQUENCE splits over "model" instead
+    (when s_max divides it), and attention combines partial softmaxes
+    over it (flash-decoding)."""
+    dp = batch_axes(mesh)
+    bspec = dp if batch is None else batch_shard(mesh, batch)
+    tp = mesh.shape[MODEL_AX]
+    head_ax = MODEL_AX if cfg.kv_heads % tp == 0 and cfg.kv_heads >= tp else None
+    seq_ax = None
+    if head_ax is None and tp > 1 and (s_max is None or s_max % tp == 0):
+        seq_ax = MODEL_AX
+    specs: Dict[str, Any] = {}
+    if cfg.family in ("attn", "hybrid"):
+        specs["k"] = Spec(None, bspec, seq_ax, head_ax, None)
+        specs["v"] = Spec(None, bspec, seq_ax, head_ax, None)
+    if cfg.family in ("ssm", "hybrid"):
+        nh = cfg.ssm.n_heads(cfg.d_model)
+        ssm_head_ax = MODEL_AX if nh % tp == 0 else None
+        specs["conv"] = Spec(None, bspec, None, None)
+        specs["ssm"] = Spec(None, bspec, ssm_head_ax, None, None)
+    return specs
+
+
+def _tp(mesh) -> int:
+    return mesh.shape.get(MODEL_AX, 1) if mesh is not None else 1
 
 
 # ---------------------------------------------------------------------------
@@ -221,21 +327,26 @@ def _layer_windows(cfg: ModelConfig) -> List[int]:
 
 
 def _attn_layer_fwd(cfg: ModelConfig, lp, h, positions, window,
-                    kv_cache=None, cache_index=None, moe_mode="a2a"):
+                    kv_cache=None, cache_index=None, moe_mode="a2a", mesh=None, tp_specs=None,
+                    seq_sharded=False):
+    """One attention layer. On a mesh ``lp`` holds this rank's slices and
+    ``tp_specs`` the layer's ``{"attn": ..., "mlp": ...}`` specs."""
+    tp_specs = tp_specs or {}
     att, new_cache = attn_mod.attend(
         lp["attn"], rms_norm(h, lp["ln1"]), positions,
         rope_theta=cfg.rope_theta, window=window,
         attn_softcap=cfg.attn_softcap, query_scale=cfg.query_scale,
         kv_cache=kv_cache, cache_index=cache_index,
+        mesh=mesh, specs=tp_specs.get("attn"), seq_sharded=seq_sharded,
     )
     if cfg.use_post_norms:
         att = rms_norm(att, lp["ln1_post"])
     h = h + att
     ff_in = rms_norm(h, lp["ln2"])
     if cfg.moe:
-        ff, aux = moe_mod.moe_layer(lp["moe"], ff_in, cfg.moe, mode=moe_mode)
+        ff, aux = moe_mod.moe_layer(lp["moe"], ff_in, cfg.moe, mode=moe_mode, mesh=mesh)
     else:
-        ff, aux = mlp_mod.mlp(lp["mlp"], ff_in, cfg.act), None
+        ff, aux = mlp_mod.mlp(lp["mlp"], ff_in, cfg.act, mesh, tp_specs.get("mlp")), None
     if cfg.use_post_norms:
         ff = rms_norm(ff, lp["ln2_post"])
     return h + ff, aux, new_cache
@@ -251,10 +362,22 @@ def _shared_block_fwd(cfg: ModelConfig, sp, h, positions, kv_cache=None, cache_i
     return h + mlp_mod.mlp(sp["mlp"], rms_norm(h, sp["ln2"]), cfg.act)
 
 
-def _embed(cfg: ModelConfig, params, inputs: Tensor) -> Tensor:
+def _embed(cfg: ModelConfig, params, inputs: Tensor, mesh=None) -> Tensor:
     cd = cfg.compute_dtype
     if cfg.input_mode == "tokens":  # cast after the gather: no cast copy of the table
-        h = params["embed"][inputs.long()].to(cd)
+        table, tok = params["embed"], inputs.long()
+        split = _vocab_split(cfg, mesh) if cfg.tie_embeddings else None
+        if split is not None:  # this rank's vocab rows: a masked lookup, summed
+            off = split * table.shape[0]
+            local = tok - off
+            hit = (local >= 0) & (local < table.shape[0])
+            h = torch.where(hit[..., None], table[local.clamp(0, table.shape[0] - 1)], 0)
+            h = mesh.psum(h, MODEL_AX)
+        else:
+            h = table[tok]
+            if mesh is not None and table.shape[1] < cfg.d_model:  # hidden split: gather
+                h = gather_tensor(h, Spec(None, None, MODEL_AX), mesh)
+        h = h.to(cd)
     else:
         h = inputs.to(cd)
     if cfg.embed_scale:  # sqrt(d_model) in f32, rounded to the compute dtype
@@ -262,20 +385,38 @@ def _embed(cfg: ModelConfig, params, inputs: Tensor) -> Tensor:
     return h
 
 
-def _mask_pad_vocab(cfg: ModelConfig, logits: Tensor) -> Tensor:
-    """Padded vocab entries get -1e30 so softmax/argmax are exact."""
+def _vocab_split(cfg: ModelConfig, mesh) -> Optional[int]:
+    """This rank's vocab block when the unembed splits the vocab over
+    "model", else None."""
+    if _tp(mesh) == 1:
+        return None
+    spec = param_specs(cfg, _tp(mesh))["embed" if cfg.tie_embeddings else "lm_head"]
+    ax = spec[0] if cfg.tie_embeddings else spec[1]
+    return mesh.axis_index(MODEL_AX) if ax == MODEL_AX else None
+
+
+def _mask_pad_vocab(cfg: ModelConfig, logits: Tensor, offset: int = 0) -> Tensor:
+    """Padded vocab entries get -1e30 so softmax/argmax are exact;
+    ``logits`` hold the vocab from ``offset`` on."""
     if cfg.padded_vocab == cfg.vocab:
         return logits
-    live = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab
+    live = torch.arange(offset, offset + logits.shape[-1], device=logits.device) < cfg.vocab
     return torch.where(live, logits, -1e30)
 
 
-def _logits(cfg: ModelConfig, params, h: Tensor) -> Tensor:
-    """(B, S, padded vocab) f32: final norm, unembed, soft-cap, pad mask."""
+def _logits(cfg: ModelConfig, params, h: Tensor, mesh=None) -> Tensor:
+    """(B, S, padded vocab) f32: final norm, unembed, soft-cap, pad mask.
+    On a mesh whose "model" axis splits the vocab, each rank computes its
+    block and the blocks are gathered once."""
     h = rms_norm(h, params["final_norm"])
     w_out = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, w_out.to(cfg.compute_dtype))
-    return _mask_pad_vocab(cfg, soft_cap(logits.float(), cfg.final_softcap))
+    split = _vocab_split(cfg, mesh)
+    offset = 0 if split is None else split * w_out.shape[1]
+    logits = _mask_pad_vocab(cfg, soft_cap(logits.float(), cfg.final_softcap), offset)
+    if split is not None:
+        logits = gather_tensor(logits, Spec(None, None, MODEL_AX), mesh)
+    return logits
 
 
 def _mamba_groups(cfg: ModelConfig) -> List[range]:
@@ -352,12 +493,14 @@ def lm_loss(cfg: ModelConfig, params, inputs: Tensor, targets: Tensor,
 # serving: KV / SSM state caches, prefill, single-token decode
 # ---------------------------------------------------------------------------
 @torch.inference_mode()
-def init_cache(cfg: ModelConfig, batch: int, s_max: int, device="cuda") -> Dict[str, Tensor]:
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device="cuda", mesh=None
+               ) -> Dict[str, Tensor]:
     """Decode state. Attention: k/v (L, B, S_max, kvH, hd). SSM: conv (L, B,
     d_conv-1, conv_dim) in the compute dtype and ssm (L, B, H, P, N) in
     f32. Hybrid: the SSM states and k/v per application of the shared
-    block."""
+    block. With ``mesh``: this rank's slice under ``cache_specs``."""
     cd = cfg.compute_dtype
+    specs = cache_specs(cfg, mesh, batch, s_max) if mesh is not None else None
     cache: Dict[str, Tensor] = {}
     if cfg.family in ("ssm", "hybrid"):
         states = [ssm_mod.init_mamba2_state(cfg.ssm, cfg.d_model, batch, cd, device)
@@ -367,16 +510,56 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device="cuda") -> Dict[
     if cfg.family in ("attn", "hybrid"):
         n = cfg.n_layers if cfg.family == "attn" else cfg.n_layers // cfg.hybrid_every
         shape = (n, batch, s_max, cfg.kv_heads, cfg.hdim)
+        if specs is not None:
+            shape = _local_shape(shape, specs["k"], mesh)
         cache["k"] = torch.zeros(shape, dtype=cd, device=device)
         cache["v"] = torch.zeros(shape, dtype=cd, device=device)
+    if specs is not None:
+        for name in ("conv", "ssm"):
+            if name in cache:
+                cache[name] = shard_tensor(cache[name], specs[name], mesh)
     return cache
 
 
-def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, decode: bool):
+def _local_shape(shape, spec, mesh):
+    return tuple(n // shard_index(mesh, e)[1] for n, e in zip(shape, spec))
+
+
+class _Shard:
+    """What a model call on a mesh needs: the mesh, the layer specs of
+    tensor parallelism, whether the batch is split over the data axes,
+    and whether the cache's sequence is split over "model"."""
+
+    def __init__(self, cfg: ModelConfig, mesh, batch: int, s_max: Optional[int] = None):
+        self.mesh = mesh
+        tp = _tp(mesh)
+        if tp > 1 and cfg.family != "attn":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the {cfg.family} family runs on a mesh only with a model axis "
+                f"of 1 (tensor-parallel ssm/hybrid execution is queued in ROADMAP.md)")
+        self.layer = {"attn": attn_mod.attention_specs(cfg.eff_heads, cfg.kv_heads, tp),
+                      "mlp": mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp)}
+        self.batch = batch_shard(mesh, batch)
+        k_spec = cache_specs(cfg, mesh, batch, s_max).get("k")
+        self.seq_sharded = k_spec is not None and k_spec[2] == MODEL_AX
+
+    def local(self, x: Tensor) -> Tensor:
+        """This rank's share of the global batch ``x``."""
+        return shard_tensor(x, Spec(self.batch), self.mesh) if self.batch else x
+
+    def whole(self, y: Tensor) -> Tensor:
+        """The global batch from every rank's share ``y``."""
+        return gather_tensor(y, Spec(self.batch), self.mesh) if self.batch else y
+
+
+def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, decode: bool,
+                shard: Optional[_Shard] = None):
     """Every layer over h with the cache written in place: ``decode`` runs
     the recurrent SSM step and the MoE's "dense_ep" mode, else the chunked
     SSM scan and "a2a" (the JAX package's prefill and decode)."""
     layers = params["layers"]
+    mesh = shard.mesh if shard is not None else None
+    tp_kw = dict(mesh=mesh, tp_specs=shard.layer, seq_sharded=shard.seq_sharded) if shard else {}
 
     def mamba(i, h):
         lp = layers[i]
@@ -396,7 +579,7 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
         for i, (lp, window) in enumerate(zip(layers, _layer_windows(cfg))):
             h, _, _ = _attn_layer_fwd(cfg, _at_use(cfg, lp), h, positions, window,
                                       kv_cache=(cache["k"][i], cache["v"][i]),
-                                      cache_index=cache_index, moe_mode=mode)
+                                      cache_index=cache_index, moe_mode=mode, **tp_kw)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             h = mamba(i, h)
@@ -412,24 +595,37 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params, cache: Dict[str, Tensor], inputs: Tensor,
-                cache_index) -> Tuple[Tensor, Dict[str, Tensor]]:
+                cache_index, mesh=None, s_max: Optional[int] = None
+                ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One new token for every sequence: inputs (B,1) tokens or (B,1,D)
     embeds, ``cache_index`` (int) the number of tokens already in the cache.
-    Returns (logits (B, vocab) f32, the cache, updated in place)."""
-    h = _embed(cfg, params, inputs)
+    Returns (logits (B, vocab) f32, the cache, updated in place). With
+    ``mesh``: global inputs and logits, this rank's model and cache slice
+    under ``cache_specs(cfg, mesh, B, s_max)`` (``s_max`` the global cache
+    length; None as the JAX package's ``build_decode_step`` takes it)."""
+    shard = _Shard(cfg, mesh, inputs.shape[0], s_max) if mesh is not None else None
+    if shard is not None:
+        inputs = shard.local(inputs)
+    h = _embed(cfg, params, inputs, mesh)
     positions = torch.full((h.shape[0], 1), int(cache_index), device=h.device)
-    h = _run_cached(cfg, params, cache, h, positions, cache_index, decode=True)
-    return _logits(cfg, params, h)[:, 0, :cfg.vocab], cache
+    h = _run_cached(cfg, params, cache, h, positions, cache_index, decode=True, shard=shard)
+    logits = _logits(cfg, params, h, mesh)[:, 0, :cfg.vocab]
+    return (shard.whole(logits) if shard is not None else logits), cache
 
 
 @torch.inference_mode()
-def prefill(cfg: ModelConfig, params, inputs: Tensor, s_max: int
+def prefill(cfg: ModelConfig, params, inputs: Tensor, s_max: int, mesh=None
             ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Forward over the prompt (B,S) / (B,S,D), building the decode cache.
-    Returns (last-position logits (B, vocab) f32, cache filled to S)."""
+    Returns (last-position logits (B, vocab) f32, cache filled to S). With
+    ``mesh``: global inputs and logits, this rank's model and cache slice."""
     B, S = inputs.shape[0], inputs.shape[1]
-    cache = init_cache(cfg, B, s_max, inputs.device)
-    h = _embed(cfg, params, inputs)
-    positions = torch.arange(S, device=h.device).expand(B, S)
-    h = _run_cached(cfg, params, cache, h, positions, 0, decode=False)
-    return _logits(cfg, params, h[:, -1:])[:, 0, :cfg.vocab], cache
+    shard = _Shard(cfg, mesh, B, s_max) if mesh is not None else None
+    cache = init_cache(cfg, B, s_max, inputs.device, mesh)
+    if shard is not None:
+        inputs = shard.local(inputs)
+    h = _embed(cfg, params, inputs, mesh)
+    positions = torch.arange(S, device=h.device).expand(h.shape[0], S)
+    h = _run_cached(cfg, params, cache, h, positions, 0, decode=False, shard=shard)
+    logits = _logits(cfg, params, h[:, -1:], mesh)[:, 0, :cfg.vocab]
+    return (shard.whole(logits) if shard is not None else logits), cache

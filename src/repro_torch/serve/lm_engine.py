@@ -19,6 +19,17 @@ tokens:
 The model must take token inputs: the engine feeds each sequence's last
 token back, which an ``"embeds"`` model cannot take (the JAX package's
 engine fails at its first decode tick; this one refuses the model).
+
+On a process mesh (``mesh`` given; the model this rank's slices, see
+``models.transformer``) every rank runs this same host loop on the same
+logits, so every rank makes the same decisions and returns the same
+tokens. The cache is each rank's slice under ``cache_specs``: with more
+than one data rank the slots split over "data" (when ``max_batch``
+divides), and a decode's routing is local to each data rank's slots, as
+the JAX package's. A prefill (B = 1) runs on every data rank, and only
+the rank holding the slot keeps its cache; the JAX package's engine
+cannot prefill an MoE model there (its shard_map needs B to divide
+"data"), so the port replicates that batch, as its step builders do.
 """
 from __future__ import annotations
 
@@ -30,6 +41,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as tfm
+from ..models.common import batch_shard, shard_index
 
 
 @dataclasses.dataclass
@@ -53,7 +65,8 @@ class ServeEngine:
     ``core.convert.lm_params_from_reference``) on ``device``, where the
     cache is kept."""
 
-    def __init__(self, cfg: tfm.ModelConfig, model, ecfg: EngineConfig, device="cuda"):
+    def __init__(self, cfg: tfm.ModelConfig, model, ecfg: EngineConfig, device="cuda",
+                 mesh=None):
         if cfg.input_mode != "tokens":
             raise ValueError(f"{cfg.arch_id}: the engine feeds tokens back into the model, "
                              f"which takes input_mode={cfg.input_mode!r}")
@@ -65,10 +78,15 @@ class ServeEngine:
         self.cfg = cfg
         self.model = model
         self.ecfg = ecfg
+        self.mesh = mesh
         self.queue: Deque[Request] = deque()
         self.active: Dict[int, Request] = {}  # slot -> request
         self.slot_pos = np.zeros(ecfg.max_batch, np.int32)  # tokens in slot
-        self.cache = tfm.init_cache(cfg, ecfg.max_batch, ecfg.s_max, self.device)
+        self.cache = tfm.init_cache(cfg, ecfg.max_batch, ecfg.s_max, self.device, mesh)
+        # the slots this rank's cache holds: [lo, lo + its batch)
+        n = next(iter(self.cache.values())).shape[1]
+        self._slot_lo = 0 if n == ecfg.max_batch else \
+            shard_index(mesh, batch_shard(mesh, ecfg.max_batch))[0] * n
         self.done: List[Request] = []
 
     def submit(self, req: Request):
@@ -81,10 +99,13 @@ class ServeEngine:
     @torch.inference_mode()
     def _prefill_into_slot(self, slot: int, req: Request):
         prompt = torch.as_tensor(np.asarray(req.prompt), device=self.device)[None]
-        logits, pcache = tfm.prefill(self.cfg, self.model, prompt, s_max=self.ecfg.s_max)
+        logits, pcache = tfm.prefill(self.cfg, self.model, prompt, s_max=self.ecfg.s_max,
+                                     mesh=self.mesh)
         # splice the single-sequence cache into the batched cache at `slot`
+        at = slot - self._slot_lo
         for name, single in pcache.items():
-            self.cache[name][:, slot:slot + 1] = single.to(self.cache[name].dtype)
+            if 0 <= at < self.cache[name].shape[1]:
+                self.cache[name][:, at:at + 1] = single.to(self.cache[name].dtype)
         self.slot_pos[slot] = prompt.shape[1]
         req.out_tokens.append(int(torch.argmax(logits[0])))
         self.active[slot] = req
@@ -105,7 +126,8 @@ class ServeEngine:
             toks[slot, 0] = req.out_tokens[-1]
         index = int(self.slot_pos.max())
         logits, self.cache = tfm.decode_step(
-            self.cfg, self.model, self.cache, torch.as_tensor(toks, device=self.device), index)
+            self.cfg, self.model, self.cache, torch.as_tensor(toks, device=self.device), index,
+            mesh=self.mesh, s_max=self.ecfg.s_max)
         logits = logits.cpu().numpy()
         finished = []
         for slot, req in list(self.active.items()):

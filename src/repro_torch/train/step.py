@@ -11,15 +11,21 @@ reference's ``lax.scan`` does (loss/mb and g/mb, summed in order), then
 device (``loss``, ``grad_norm``, ``lr``): reading one waits for the step.
 
 On one card both strategies ("tp": tensor parallel over a mesh's "model"
-axis, "dp": pure data parallel) are the same local computation, as the
-MoE's two expert-parallel modes are; the reference's shardings,
-``shardings_for`` and the decode and prefill step builders wait for the
-port's mesh.
+axis, "dp": pure data parallel) are the same local computation; training
+on a mesh (the reference's shardings, ``shardings_for``, ZeRO-1) waits
+for a later slice.
+
+``build_prefill_step`` and ``build_decode_step`` are the serving steps on
+a process mesh (``launch.mesh``), the reference's builders: the step takes
+global inputs and this rank's slices of the model and cache
+(``models.transformer.param_specs``/``cache_specs``, returned with the
+step), and returns global logits and this rank's cache. A batch that does
+not divide the data axes is replicated over them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -88,3 +94,35 @@ def build_train_step(cfg: tfm.ModelConfig, train_cfg: TrainConfig = TrainConfig(
         return params, opt, {"loss": loss, **om}
 
     return step
+
+
+def _serve_specs(cfg: tfm.ModelConfig, mesh, batch: int, s_max: Optional[int]):
+    tp = mesh.shape.get("model", 1)
+    return {"params": tfm.param_specs(cfg, tp), "cache": tfm.cache_specs(cfg, mesh, batch, s_max)}
+
+
+def build_decode_step(cfg: tfm.ModelConfig, mesh, batch: int, s_max: Optional[int] = None):
+    """(step(params, cache, inputs, cache_index) -> (logits (B, vocab),
+    cache), {"specs": {"params", "cache"}}): one token for every sequence
+    on ``mesh``, the cache updated in place."""
+    specs = _serve_specs(cfg, mesh, batch, s_max)
+
+    def step(params, cache, inputs, cache_index):
+        if inputs.shape[0] != batch:
+            raise ValueError(f"the step was built for a batch of {batch}, got {inputs.shape[0]}")
+        return tfm.decode_step(cfg, params, cache, inputs, cache_index, mesh=mesh, s_max=s_max)
+
+    return step, {"specs": specs}
+
+
+def build_prefill_step(cfg: tfm.ModelConfig, mesh, s_max: int, batch: int):
+    """(step(params, inputs) -> (last-position logits (B, vocab), cache),
+    {"specs": {"params", "cache"}}): the prompt's forward on ``mesh``."""
+    specs = _serve_specs(cfg, mesh, batch, s_max)
+
+    def step(params, inputs):
+        if inputs.shape[0] != batch:
+            raise ValueError(f"the step was built for a batch of {batch}, got {inputs.shape[0]}")
+        return tfm.prefill(cfg, params, inputs, s_max, mesh=mesh)
+
+    return step, {"specs": specs}

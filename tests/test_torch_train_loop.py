@@ -49,6 +49,7 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import compress as tcompress
 from repro_torch.runtime import CrossClusterDP, FailureInjector, RuntimeConfig, run_training
+from repro_torch.runtime import driver
 from repro_torch.train import TrainConfig, build_train_step
 
 LOSS_RTOL = 1e-5
@@ -296,10 +297,35 @@ def test_run_training_matches_jax_and_itself(case, jax_loops, tmp_path):
         assert res.losses[:5] == plain.losses[:5] and res.losses[5] != plain.losses[5]
 
 
-def test_run_training_flags_a_straggler(tmp_path):
+class FakeClock:
+    """The driver module's ``time`` under a clock the test moves:
+    ``perf_counter`` reads it, ``sleep`` (the injector's straggle) advances
+    it, and ``tick`` advances it by one step's time. A step's measured time
+    is then set by construction, whatever the machine's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def perf_counter(self) -> float:
+        return self.now
+
+    def sleep(self, s: float) -> None:
+        self.now += s
+
+    def tick(self, s: float) -> None:
+        self.now += s
+
+
+STEP_S = 0.125  # every step's time on the fake clock (a power of two: exact sums)
+STRAGGLE_S = 0.5  # step 6's extra time: 5x a step, against a factor of 2.5
+
+
+def _straggler_run(tmp_path, monkeypatch, straggle_steps):
     _, params, _, batch_fn = _loop_pieces("olmoe-1b-7b")
     cfg = get_config("olmoe-1b-7b", smoke=True)
     step_fn = build_train_step(cfg, TrainConfig(), "cpu")
+    clock = FakeClock()
+    monkeypatch.setattr(driver, "time", clock)
 
     def make_state():
         model = port_model("olmoe-1b-7b", params)
@@ -307,13 +333,27 @@ def test_run_training_flags_a_straggler(tmp_path):
 
     def step(state, batch):
         p, o, m = step_fn(state["params"], state["opt"], batch)
+        clock.tick(STEP_S)
         return {"params": p, "opt": o}, m
 
     rc = RuntimeConfig(ckpt_dir=str(tmp_path), ckpt_every=100, straggler_factor=2.5)
-    res = run_training(steps=8, make_state=make_state, step_fn=_poisoning(step),
-                       batch_fn=batch_fn, rc=rc,
-                       injector=FailureInjector(straggle_steps=(6,), straggle_s=0.5))
-    assert res.straggler_events >= 1
+    return run_training(steps=8, make_state=make_state, step_fn=_poisoning(step),
+                        batch_fn=batch_fn, rc=rc,
+                        injector=FailureInjector(straggle_steps=straggle_steps,
+                                                 straggle_s=STRAGGLE_S))
+
+
+def test_run_training_flags_a_straggler(tmp_path, monkeypatch):
+    """Step 6 takes STEP_S + STRAGGLE_S on the fake clock, 5x the EWMA of
+    the steps before it: flagged once, and the steps after it are not."""
+    res = _straggler_run(tmp_path, monkeypatch, (6,))
+    assert res.straggler_events == 1
+    assert res.final_step == 8 and res.restarts == res.rollbacks == 0
+
+
+def test_run_training_flags_no_step_at_a_steady_pace(tmp_path, monkeypatch):
+    res = _straggler_run(tmp_path, monkeypatch, ())
+    assert res.straggler_events == 0
     assert res.final_step == 8 and res.restarts == res.rollbacks == 0
 
 
