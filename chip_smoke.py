@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-16, one card (14, 15 run after 6; 10 to 13 before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11's, 12d and 13's grid parts and 16, four cards
+    python3 chip_smoke.py            # phases 1-17, one card (14, 15 run after 6; 10 to 13 before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11, 12d, 13's grid parts, 16, 17; four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -85,8 +85,10 @@ Phases (any failed check raises, so the script exits non-zero):
      path), then a profile (top ops by device time, and each
      segment-reduce launch: runs, entries, device time, bound). Then the
      loop, twice (both trajectories printed, and whether they are
-     bit-identical), held against the host loop (mcl_iterate_host: the same
-     card multiply, pruning in numpy): nnz trajectories equal within 1e-5
+     bit-identical), then its first 2 iterations held against the host
+     loop's (mcl_iterate_host: the same card multiply, pruning in numpy;
+     2 of the 4 iterations, to keep the script within its limit): nnz
+     trajectories equal within 1e-5
      per iteration (every difference printed: f32 sums in another order can
      move an entry across the threshold), chaos within rtol 1e-3, identical
      cluster partitions, at most 64 entries per column with column sums
@@ -350,6 +352,22 @@ Phases (any failed check raises, so the script exits non-zero):
      (assembled from the ranks' slices), each data shard's slots routed
      alone ("dense_ep"). Logs each rank's peak memory, decode-only tick
      times and run 2's share of time inside collectives.
+ 17. Training on a process mesh (train.build_train_step(..., mesh=),
+     ZeRO-1 AdamW); runs after 16. OLMoE-1B-7B at its published width, 2
+     of 16 layers (--chips 4: 4), f32 masters, bf16 compute, remat, on a
+     2x2 ("data" x "model") mesh: four gloo ranks sharing this card
+     (--chips 4: one a card over NCCL), each drawing every leaf whole and
+     keeping its slice, its ZeRO-1 AdamW state the slices the specs give
+     (checked). 3 steps on the port's data stream, global batch 4 x 512
+     (--chips 4: 8 x 2048): every rank the same finite losses, SpMM
+     exactly 6 launches a MoE layer a step on every rank (each count set
+     to 0 just before the step). Before the run, a checked step in f32
+     compute from the seeded init is held against one step on one card
+     from the same init and batch, each MoE layer applied to the mesh's
+     shards: loss within rtol 1e-4, the gradient norm within rtol 1e-3,
+     the updated parameters within AdamW's first-step sign bound (see
+     TRAIN_MESH_*). Logs each rank's init, peak memory, step times and the
+     last step's share inside collectives.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
@@ -360,8 +378,8 @@ SpMM, hash and segment rows also hold their launches in 11, the hash,
 segment and binned rows their launches in 12 and in 13, the segment row
 its launches per rank in 9's serving, and the SpMM row its accumulate
 mode's check, phase 14's MoE launches and timings, and phase 15's training
-launches, forward and backward, and timings, and phase 16's launches
-per rank) and the JSON result line; with --chips 4 only
+launches, forward and backward, and timings, and phases 16's and 17's
+launches per rank) and the JSON result line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -1302,6 +1320,13 @@ def profile_segment_reduce(label, fn):
     return len(calls), ms, total_bound
 
 
+# the n = 2^18 host loop's depth: of the device loop's 4 iterations, the
+# first 2 (the host loop pulls ~17 GB a later iteration through numpy: 4
+# iterations took 182.48 s of the script's 1107.7 s on an H100 80GB HBM3 at
+# 700 W); the device loop run again to that depth is its reference
+MCL_HOST_ITERS = 2
+
+
 def mcl_sparse_input():
     """The sparse MCL run's column-stochastic input (n = 2^18) and config."""
     from repro_torch.core import gen
@@ -1368,10 +1393,13 @@ def profile_mcl_batch(a, grid, cfg):
 
 
 def mcl_sparse_phase(grid):
-    """Phase 7: sparse MCL at n = 2^18, device loop vs host loop. Returns
-    the segment reduction's numbers in the profiled batch (see
+    """Phase 7: sparse MCL at n = 2^18, device loop vs host loop (the host
+    loop's first MCL_HOST_ITERS iterations against the device loop's).
+    Returns the segment reduction's numbers in the profiled batch (see
     profile_mcl_batch) and the first device loop (input, config, final
     matrix, history, wall, peak and each iteration's plan) for 12a."""
+    import dataclasses
+
     from repro_torch.sparse_apps import mcl
 
     t0 = time.perf_counter()
@@ -1386,10 +1414,17 @@ def mcl_sparse_phase(grid):
     log(f"mcl sparse n=2^18: device loop trajectories {[h['nnz'] for h in hist_d]} and "
         f"{[h['nnz'] for h in hist_2]}; bit-identical: {same_bits(fin_d, hist_d, fin_2, hist_2)}")
     del fin_2
+    short = dataclasses.replace(cfg, max_iters=MCL_HOST_ITERS)
     fin_h, hist_h, wall_h, peak_h, _ = run_mcl(
-        mcl.mcl_iterate_host, a, grid, cfg, "mcl sparse n=2^18, host loop")
-    compare_loops("mcl sparse n=2^18 device vs host", hist_d, hist_h,
-                  partition(fin_d, N_MCL), partition(fin_h, N_MCL), chaos_rtol=CHAOS_RTOL)
+        mcl.mcl_iterate_host, a, grid, short, "mcl sparse n=2^18, host loop")
+    fin_s, hist_s, _, _, _ = run_mcl(
+        mcl.mcl_iterate, a, grid, short, f"mcl sparse n=2^18, device loop, {MCL_HOST_ITERS} "
+        f"iterations")
+    if [h["nnz"] for h in hist_s] != [h["nnz"] for h in hist_d[:MCL_HOST_ITERS]]:
+        raise AssertionError("mcl sparse: the short device loop left the long one's trajectory")
+    compare_loops("mcl sparse n=2^18 device vs host", hist_s, hist_h,
+                  partition(fin_s, N_MCL), partition(fin_h, N_MCL), chaos_rtol=CHAOS_RTOL)
+    del fin_s
     most, dev = check_mcl_matrix(fin_d, cfg.max_per_col)
     host_bytes = [h["host_bytes"] for h in hist_d]
     if max(host_bytes) >= 1024:
@@ -4970,7 +5005,7 @@ def sharded_moe(dp, tp):
     """A one-card ``moe_layer`` that routes as a (dp, tp) mesh does: each of
     the dp batch shards alone, and in "a2a" (S divisible by tp) each of its
     tp sequence shards alone, every shard with the capacity of its own
-    tokens."""
+    tokens; the aux loss is the shards' mean, as the mesh averages it."""
     import torch
 
     from repro_torch.models import moe
@@ -4979,11 +5014,13 @@ def sharded_moe(dp, tp):
 
     def layer(params, x, cfg, mode="a2a", mesh=None):
         B, S, _ = x.shape
-        rows = []
+        rows, auxes = [], []
         for xb in x.split(B // dp):
             parts = xb.split(S // tp, dim=1) if mode == "a2a" and S % tp == 0 else (xb,)
-            rows.append(torch.cat([inner(params, xs, cfg, mode=mode)[0] for xs in parts], 1))
-        return torch.cat(rows), torch.zeros((), device=x.device)
+            outs = [inner(params, xs, cfg, mode=mode) for xs in parts]
+            rows.append(torch.cat([out for out, _ in outs], 1))
+            auxes += [aux for _, aux in outs]
+        return torch.cat(rows), torch.stack(auxes).mean()  # the mesh's aux: the shards' mean
 
     return layer
 
@@ -5121,6 +5158,330 @@ def mesh_phase(backend):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training on a ("data", "model") process mesh
+# ---------------------------------------------------------------------------
+TRAIN_MESH_SHAPE = (2, 2)  # (data, model): 4 ranks
+# OLMoE-1B-7B at its published width: layers of 16, global batch x sequence
+TRAIN_MESH = {"gloo": dict(layers=2, batch=4, seq=512),
+              "nccl": dict(layers=4, batch=8, seq=2048)}
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_OPT = OLMOE_TRAIN_OPT
+# The checked step against one card (PERF.md §6, stated before the run
+# that tests it): one step from the seeded init on the first batch, in f32
+# compute on both sides (f32 masters), the one card applying each MoE
+# layer to the mesh's shards (``sharded_moe``). In bf16 (on an H100 80GB
+# HBM3 at 700 W) routing near-ties flip between the two, and 18 % of an
+# expert tensor's entries took another AdamW sign. Loss, the global
+# gradient norm and every parameter's gradient norm (the data-reduced
+# gradient, whose scale AdamW's first step does not show) within these
+# rtols. AdamW's first step moves an entry by lr_1·g/(|g| + eps), the sign
+# of g: at most TRAIN_MESH_FLIP_SHARE of a tensor's entries may differ by
+# more than TRAIN_MESH_FLIP_ATOL (a gradient entry near 0 whose sign the
+# sums' order flips).
+TRAIN_MESH_LOSS_RTOL = 1e-4
+TRAIN_MESH_NORM_RTOL = 1e-3
+TRAIN_MESH_LEAF_RTOL = 1e-3
+TRAIN_MESH_FLIP_ATOL = 1e-5
+TRAIN_MESH_FLIP_SHARE = 0.01
+TRAIN_MESH_TIMEOUT_S = 600  # one spawn of the phase, every collective included
+
+
+def train_mesh_batch(cfg, p17, step, device):
+    from repro_torch.data import DataConfig, synthetic_batch
+
+    return synthetic_batch(DataConfig(seq_len=p17["seq"], global_batch=p17["batch"],
+                                      vocab=cfg.vocab, seed=TRAIN_SEED), step, device)
+
+
+def stacked_shapes(tree):
+    """{name: shape} of a rank's ZeRO state in the reference's stacked
+    layout: ``layers.<i>.<rest>`` stacked over the layers the rank holds."""
+    layers, out = {}, {}
+    for name, t in tree.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(".".join(["layers"] + parts[2:]), []).append(tuple(t.shape))
+        else:
+            out[name] = tuple(t.shape)
+    for kind, shapes in layers.items():
+        if len(set(shapes)) != 1:
+            raise AssertionError(f"17: {kind} holds layers of shapes {shapes}")
+        out[kind] = (len(shapes),) + shapes[0]
+    return out
+
+
+def spec_slice_shapes(specs, shapes, mesh):
+    """{name: shape} of this rank's slice of every leaf of a stacked spec
+    tree ``specs`` over the stacked shape tree ``shapes``."""
+    from repro_torch.models.common import Spec, shard_index
+
+    out = {}
+
+    def walk(spec, shape, path):
+        if isinstance(spec, Spec):
+            ent = tuple(spec) + (None,) * (len(shape) - len(spec))
+            out[path] = tuple(n // shard_index(mesh, e)[1] for n, e in zip(shape, ent))
+            return
+        for k, v in spec.items():
+            walk(v, shape[k], f"{path}.{k}" if path else k)
+
+    walk(specs, shapes, "")
+    return out
+
+
+def mesh_train_setup(cfg, mesh, p17):
+    """(model, AdamW state, train step) of ``cfg`` on ``mesh``: the seeded
+    init cut to this rank's slices, its ZeRO-1 state."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, build_train_step
+
+    dev = mesh.device
+    model = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev,
+                            master=True, mesh=mesh)
+    step = build_train_step(cfg, TrainConfig(optimizer=adamw.AdamWConfig(**TRAIN_MESH_OPT)),
+                            dev, mesh=mesh, global_batch=p17["batch"])
+    return model, adamw.init_opt_state(model, mesh=mesh, specs=step.specs), step
+
+
+def mesh_train_rank(mesh, p17):
+    """Phase 17 on one rank. First the checked step: the seeded init in f32
+    compute, one step on the first batch, this rank's updated slices held
+    against the one card's (``p17["ref"]``, shared by the parent). Then
+    the run: the init in bf16 compute (f32 masters), TRAIN_MESH_STEPS
+    steps on the port's data stream, each step's SpMM count set to 0 just
+    before and read just after, the last under ``CollectiveClock``.
+    Returns losses, counts, times, ZeRO shapes and the check's values."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.spmm_kernel import spmm_cuda
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import leaf_spec, shard_tensor
+
+    entered = time.time()
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p17["layers"])
+    dev = mesh.device
+    # the checked step, f32
+    t0 = time.perf_counter()
+    model, opt, step = mesh_train_setup(dataclasses.replace(cfg, dtype="float32"), mesh, p17)
+    spmm_cuda.launches = 0
+    loss, grads = step.grads(model, train_mesh_batch(cfg, p17, 0, dev))
+    leaf = dict(zip(step.layout.names, step.layout.norms_sq(grads).sqrt().tolist()))
+    model, opt, m = step.update(model, opt, grads)
+    del grads
+    check = {"loss": float(loss), "grad_norm": float(m["grad_norm"]), "leaf_norms": leaf,
+             "launches": spmm_cuda.launches, "params": {}, "s": time.perf_counter() - t0}
+    for name, p in model.named_parameters():
+        want = shard_tensor(p17["ref"][name], leaf_spec(step.specs["params"], name), mesh).to(dev)
+        diff = (p.detach() - want).abs()
+        check["params"][name] = (float(diff.max()),
+                                 float((diff > TRAIN_MESH_FLIP_ATOL).float().mean()))
+        del want, diff
+    check["s"] = time.perf_counter() - t0
+    del model, opt, step, m
+    torch.cuda.empty_cache()
+    # the run, bf16
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, opt, step = mesh_train_setup(cfg, mesh, p17)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = lambda tree: sum(t.numel() * t.element_size() for t in tree.values())  # noqa: E731
+    held = {"params": nbytes(dict(model.named_parameters())),
+            "opt": nbytes(opt["mu"]) + nbytes(opt["nu"])}
+    zero = {"held": stacked_shapes(opt["mu"]),
+            "want": spec_slice_shapes(step.specs["opt"]["mu"], tfm.param_shapes(cfg), mesh)}
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_MESH_STEPS):
+        batch = train_mesh_batch(cfg, p17, i, dev)
+        clock = CollectiveClock()
+        torch.cuda.synchronize()
+        spmm_cuda.launches = 0
+        t = time.perf_counter()
+        with clock if i == TRAIN_MESH_STEPS - 1 else contextlib.nullcontext():
+            model, opt, m = step(model, opt, batch)
+            loss = float(m["loss"])  # waits for the step
+        steps.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                      "s": time.perf_counter() - t, "launches": spmm_cuda.launches,
+                      "collective_s": clock.seconds, "collectives": clock.calls})
+    return {"coords": mesh.coords, "init_s": init_s, "held": held, "zero": zero,
+            "peak": torch.cuda.max_memory_allocated(), "steps": steps, "check": check,
+            "entered": entered, "left": time.time()}
+
+
+def mesh_train_reference(cfg, p17):
+    """The checked step on this card, in f32 compute: the seeded init (the
+    draws the mesh cuts its slices from), one train step on the mesh's
+    first batch with ``sharded_moe`` routing each (data, model) shard
+    alone. Returns its loss, gradient norm, every parameter's gradient
+    norm, the updated parameters (kept on the card for the ranks) and the
+    loss at init routing all tokens together."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe, transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainConfig, build_train_step
+
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = lm_master(cfg, TRAIN_SEED)
+    opt = adamw.init_opt_state(model)
+    step = build_train_step(cfg, TrainConfig(optimizer=adamw.AdamWConfig(**TRAIN_MESH_OPT)),
+                            "cuda")
+    batch = train_mesh_batch(cfg, p17, 0, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with torch.no_grad():  # not what the mesh computes: for the log
+        together = float(tfm.lm_loss(cfg, model, batch["inputs"], batch["targets"]))
+    inner = moe.moe_layer
+    moe.moe_layer = sharded_moe(*TRAIN_MESH_SHAPE)
+    try:
+        t0 = time.perf_counter()
+        loss, grads = step.grads(model, batch)
+        leaf = {n: float(g.square().sum().sqrt()) for n, g in grads.items()}
+        model, opt, m = step.update(model, opt, grads)
+        loss, gnorm = float(loss), float(m["grad_norm"])
+        step_s = time.perf_counter() - t0
+        del grads
+    finally:
+        moe.moe_layer = inner
+    peak = torch.cuda.max_memory_allocated()
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    del opt, step, m
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": gnorm, "leaf_norms": leaf, "together": together,
+            "params": params, "init_s": init_s, "step_s": step_s, "peak": peak}
+
+
+def mesh_train_phase(backend):
+    """Phase 17: ``mesh_train_rank`` on a 2 x 2 mesh over ``backend`` (gloo:
+    the four ranks share this card; nccl: one rank per card). Checks that
+    every rank got the same finite loss each step, counted 6 SpMM launches
+    a MoE layer a step (forward, remat recompute, dB: 2 each), holds ZeRO
+    state of the shapes ``shardings_for``'s specs give, and that the
+    checked step agrees with one card's (see TRAIN_MESH_*). Logs each
+    rank's init, peak memory, step times and the last step's share inside
+    collectives. Returns the phase's record."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import spawn
+
+    t_phase = time.perf_counter()
+    p17 = TRAIN_MESH[backend]
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p17["layers"])
+    ref = mesh_train_reference(cfg, p17)
+    log(f"17 one card, f32: {cfg.n_layers} layers, batch {p17['batch']} x {p17['seq']}, init "
+        f"{ref['init_s']:.2f} s, one step {ref['step_s']:.2f} s, peak "
+        f"{ref['peak'] / 2**30:.3f} GiB; loss {ref['loss']:.6f}, grad norm "
+        f"{ref['grad_norm']:.6f}; at init routing all tokens together (not what the mesh "
+        f"computes) {ref['together']:.6f}")
+    workdir = Path(__file__).resolve().parent / "build"
+    workdir.mkdir(exist_ok=True)
+    t0, spawned = time.perf_counter(), time.time()
+    ranks = spawn.run_mesh(mesh_train_rank, TRAIN_MESH_SHAPE, backend=backend, device="cuda",
+                           args=({**p17, "ref": ref["params"]},),
+                           timeout_s=TRAIN_MESH_TIMEOUT_S, workdir=workdir)
+    spawn_s = time.perf_counter() - t0
+    del ref["params"]
+    torch.cuda.empty_cache()
+    want = 6 * cfg.n_layers
+    tag = lambda r: str(tuple(r["coords"].values()))  # noqa: E731
+    launches = {tag(r): [s["launches"] for s in r["steps"]] for r in ranks}
+
+    def leaf_rel(r):  # each parameter's gradient norm against the one card's, relative
+        return {n: abs(g - ref["leaf_norms"][n]) / max(ref["leaf_norms"][n], 1e-30)
+                for n, g in r["check"]["leaf_norms"].items()}
+
+    worst = {"max": max(mx for r in ranks for mx, _ in r["check"]["params"].values()),
+             "share": max(sh for r in ranks for _, sh in r["check"]["params"].values()),
+             "leaf_norm_rel": max(v for r in ranks for v in leaf_rel(r).values())}
+    worst_leaf = max(leaf_rel(ranks[0]).items(), key=lambda kv: kv[1])
+    for r in ranks:
+        s = r["steps"]
+        last = s[-1]
+        log(f"17 rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, params "
+            f"{r['held']['params'] / 2**30:.3f} GiB, ZeRO moments {r['held']['opt'] / 2**30:.3f} "
+            f"GiB, peak {r['peak'] / 2**30:.3f} GiB; step s {[round(x['s'], 3) for x in s]} "
+            f"(host clock, ending in the loss's read); last step under the collective clock: "
+            f"{last['collectives']} collectives {last['collective_s']:.3f} s = "
+            f"{100 * last['collective_s'] / last['s']:.2f} % of {last['s']:.3f} s; SpMM "
+            f"launches {launches[tag(r)]} (checked step {r['check']['launches']}); checked step "
+            f"loss {r['check']['loss']:.6f}, grad norm {r['check']['grad_norm']:.6f}, parameters "
+            f"max abs diff {max(mx for mx, _ in r['check']['params'].values()):.4g}, share over "
+            f"{TRAIN_MESH_FLIP_ATOL} {max(sh for _, sh in r['check']['params'].values()):.4g}; "
+            f"entered {r['entered'] - spawned:.1f} s after the spawn, checked step (init, step, "
+            f"compare) {r['check']['s']:.1f} s, left {r['left'] - spawned:.1f} s after it")
+    check = ranks[0]["check"]
+    log(f"17 one-card check of the f32 step: loss {check['loss']:.6f} vs {ref['loss']:.6f} "
+        f"(rel {abs(check['loss'] - ref['loss']) / abs(ref['loss']):.3g}, rtol "
+        f"{TRAIN_MESH_LOSS_RTOL}), grad norm {check['grad_norm']:.6f} vs {ref['grad_norm']:.6f} "
+        f"(rel {abs(check['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.3g}, rtol "
+        f"{TRAIN_MESH_NORM_RTOL}); every parameter's gradient norm within rel "
+        f"{worst['leaf_norm_rel']:.3g} (rtol {TRAIN_MESH_LEAF_RTOL}; rank 0's worst "
+        f"{worst_leaf[0]}: {check['leaf_norms'][worst_leaf[0]]:.6g} vs "
+        f"{ref['leaf_norms'][worst_leaf[0]]:.6g}, of {len(ref['leaf_norms'])} parameters); "
+        f"parameters: max abs diff {worst['max']:.4g}, at most {100 * worst['share']:.4f} % of "
+        f"a tensor's entries over {TRAIN_MESH_FLIP_ATOL} (bound {100 * TRAIN_MESH_FLIP_SHARE} "
+        f"%); at init the one card routing all tokens together gives loss "
+        f"{ref['together']:.6f}")
+    losses = [s["loss"] for s in ranks[0]["steps"]]
+    for r in ranks:
+        at = r["coords"]
+        got = [s["loss"] for s in r["steps"]]
+        if got != losses or not all(np.isfinite(got)):
+            raise AssertionError(f"17: rank {at} losses {got}, rank 0's {losses}")
+        if any(n != want for n in launches[tag(r)] + [r["check"]["launches"]]):
+            raise AssertionError(f"17: rank {at} SpMM launches {launches[tag(r)]}, checked step "
+                                 f"{r['check']['launches']}; want {want} a step = "
+                                 f"{cfg.n_layers} layers x (2 forward + 2 recompute + 2 dB)")
+        zero = r["zero"]
+        if zero["held"] != zero["want"]:
+            raise AssertionError(f"17: rank {at} ZeRO state {zero['held']}, specs give "
+                                 f"{zero['want']}")
+        if not (np.isclose(r["check"]["loss"], ref["loss"], rtol=TRAIN_MESH_LOSS_RTOL, atol=0)
+                and np.isclose(r["check"]["grad_norm"], ref["grad_norm"],
+                               rtol=TRAIN_MESH_NORM_RTOL, atol=0)):
+            raise AssertionError(f"17: rank {at} checked step loss {r['check']['loss']}, grad "
+                                 f"norm {r['check']['grad_norm']}; one card {ref['loss']}, "
+                                 f"{ref['grad_norm']}")
+        if sorted(r["check"]["leaf_norms"]) != sorted(ref["leaf_norms"]):
+            raise AssertionError(f"17: rank {at} gradient norms of "
+                                 f"{sorted(r['check']['leaf_norms'])}")
+        for name, rel in leaf_rel(r).items():
+            if not rel <= TRAIN_MESH_LEAF_RTOL:
+                raise AssertionError(f"17: rank {at} {name}'s gradient norm "
+                                     f"{r['check']['leaf_norms'][name]}, one card "
+                                     f"{ref['leaf_norms'][name]} (rel {rel}, rtol "
+                                     f"{TRAIN_MESH_LEAF_RTOL})")
+        for name, (mx, share) in r["check"]["params"].items():
+            if share > TRAIN_MESH_FLIP_SHARE:
+                raise AssertionError(f"17: rank {at} {name} after the checked step: "
+                                     f"{100 * share:.3f} % of entries over "
+                                     f"{TRAIN_MESH_FLIP_ATOL} (bound "
+                                     f"{100 * TRAIN_MESH_FLIP_SHARE} %; max abs diff {mx})")
+    log(f"17 {OLMOE} ({cfg.n_layers} layers, f32 masters, bf16, remat, ZeRO-1 AdamW) on a "
+        f"{TRAIN_MESH_SHAPE[0]}x{TRAIN_MESH_SHAPE[1]} (data x model) mesh over {backend}: "
+        f"{TRAIN_MESH_STEPS} steps, losses {[round(x, 6) for x in losses]} on every rank; "
+        f"spawn {spawn_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"backend": backend, "launches_per_rank": launches, "losses": losses,
+            "check": {"loss": [check["loss"], ref["loss"]],
+                      "grad_norm": [check["grad_norm"], ref["grad_norm"]], **worst},
+            "peak_gib": {tag(r): r["peak"] / 2**30 for r in ranks},
+            "step_s": {tag(r): [x["s"] for x in r["steps"]] for r in ranks}}
 
 def main() -> int:
     import argparse
@@ -5178,6 +5539,7 @@ def main() -> int:
                   host_s)
         tuned_phase_four_cards(t4, N_FULL)
         mesh_phase("nccl")  # 16: one rank per card
+        mesh_train_phase("nccl")  # 17: one rank per card
         log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5344,6 +5706,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 16. LM serving on a 2x2 (data, model) mesh: four ranks on this card over gloo
     p16 = mesh_phase("gloo")
+    torch.cuda.empty_cache()
+    # 17. training on a 2x2 (data, model) mesh: four ranks on this card over gloo
+    p17 = mesh_train_phase("gloo")
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
     seg_bound, seg_by = bound_ms(seg_bytes, seg_ops)
@@ -5477,6 +5842,8 @@ def main() -> int:
     row["spmm"]["train_step_profile"] = p15b["profile"]
     # phase 16's launches per rank: run 1, run 2, the check's prefill and decode
     row["spmm"]["mesh_2x2_launches_per_rank"] = p16["launches_per_rank"]
+    # phase 17's training launches per rank and step, each step's count set to 0 just before it
+    row["spmm"]["mesh_train_2x2_launches_per_rank"] = p17["launches_per_rank"]
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

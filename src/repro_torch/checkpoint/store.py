@@ -98,7 +98,7 @@ def _unflatten(like, leaves: Dict[str, Any], prefix: str = ""):
     return leaves[prefix]
 
 
-def _host_copy(x) -> np.ndarray:
+def host_copy(x) -> np.ndarray:
     """A fresh host copy of a leaf: a tensor is copied off its device
     (blocking), a bfloat16 one widened to float32 on the host, an array or
     scalar copied, so later writes to ``x`` never reach the copy."""
@@ -144,7 +144,7 @@ def save(
     the final directory. ``meta`` is any JSON-serializable dict, stored in
     the manifest and read back by ``load_meta``; it never touches the array
     payload."""
-    return _write(path, step, {k: _host_copy(v) for k, v in _flatten(state).items()}, meta)
+    return _write(path, step, {k: host_copy(v) for k, v in _flatten(state).items()}, meta)
 
 
 def dir_nbytes(d: str) -> int:
@@ -209,6 +209,46 @@ def restore_arrays(path: str, step: int) -> Dict[str, np.ndarray]:
     return arrays
 
 
+class LeafReader:
+    """``restore_arrays`` one leaf at a time: ``reader[keystr]`` reads that
+    leaf from the archive and verifies its hash (``IOError`` as
+    ``restore_arrays`` raises), so a reader holds one leaf on the host,
+    not the checkpoint. A context manager: it closes the archive."""
+
+    def __init__(self, path: str, step: int):
+        d = os.path.join(path, f"step_{step:08d}")
+        try:
+            with open(os.path.join(d, "manifest.json")) as f:
+                self.leaves = json.load(f)["leaves"]
+            self._z = np.load(os.path.join(d, "arrays.npz"))
+        except IOError:
+            raise
+        except Exception as e:
+            raise IOError(f"checkpoint unreadable: {d}: {e}") from e
+        missing = set(k.replace("/", "\x00") for k in self.leaves) - set(self._z.files)
+        if missing:
+            self._z.close()
+            raise IOError(f"checkpoint corruption: {sorted(missing)[:3]} missing from arrays")
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        try:
+            a = self._z[key.replace("/", "\x00")]
+        except Exception as e:
+            raise IOError(f"checkpoint leaf {key} unreadable: {e}") from e
+        if _digest(a) != self.leaves[key]["hash"]:
+            raise IOError(f"checkpoint corruption: {key} hash mismatch")
+        return a
+
+    def close(self) -> None:
+        self._z.close()
+
+    def __enter__(self) -> "LeafReader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def restore(
     path: str, step: int, like: Dict[str, Any], device=None,
 ) -> Dict[str, Any]:
@@ -256,7 +296,10 @@ class AsyncCheckpointer:
         self.bytes_written = 0
         sweep_stale_tmp(path)
 
-    def save(self, step: int, state, meta: Optional[Dict[str, Any]] = None):
+    def save(self, step: int, state, meta: Optional[Dict[str, Any]] = None,
+             owned: bool = False):
+        """``owned``: the state's leaves are host arrays that nothing
+        writes again (``host_copy``'s), taken as they are, not copied."""
         if self._thread is not None and self._thread.is_alive():
             self.stalls += 1
         t0 = time.perf_counter()
@@ -264,7 +307,7 @@ class AsyncCheckpointer:
         self.stall_s += time.perf_counter() - t0
         # snapshot now: the arrays, and the meta, whose lists (a loop's
         # history) the caller goes on appending to
-        host = {k: _host_copy(v) for k, v in _flatten(state).items()}
+        host = {k: v if owned else host_copy(v) for k, v in _flatten(state).items()}
         meta = json.loads(json.dumps(meta or {}))
 
         def work():

@@ -16,10 +16,11 @@
   * ``lm_params_from_reference`` — the JAX package's LM parameter tree (as
     numpy arrays) as the port's model, its stacked layers unstacked; with
     ``master=True`` in f32 (the training model), else ndim > 1 in the
-    compute dtype (the serving model).
+    compute dtype (the serving model); with ``mesh``, this rank's slices.
   * ``opt_state_from_reference`` — the JAX package's AdamW state (mu, nu,
     count, and master with ``master_in_opt``) as the port's, its trees
-    unstacked in the same way, so both packages train on from one state.
+    unstacked in the same way, so both packages train on from one state;
+    with ``mesh``, this rank's ZeRO-1 slices.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from ..models import transformer
-from ..models.common import MODEL_AX, ParamTree, leaf_spec, shard_tensor, unflatten
+from ..models.common import MODEL_AX, ParamTree, ZeroLayout, leaf_spec, shard_tensor, unflatten
 from .distsparse import DistSparse
 from .sparse import SparseCOO
 from .specs import PlanFloors
@@ -131,10 +132,6 @@ def _unstacked(cfg: transformer.ModelConfig, params: Dict[str, Any]) -> Dict[str
     return {name: flat[name] for name in want}  # the model's order
 
 
-def _f32(a: np.ndarray, device) -> Tensor:
-    return torch.as_tensor(np.array(a, dtype=np.float32, copy=True)).to(device)
-
-
 def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any],
                              device="cuda", master: bool = False,
                              mesh=None) -> transformer.ParamTree:
@@ -165,12 +162,26 @@ def lm_params_from_reference(cfg: transformer.ModelConfig, params: Dict[str, Any
 
 
 def opt_state_from_reference(cfg: transformer.ModelConfig, state: Dict[str, Any],
-                             device="cuda") -> Dict[str, Any]:
+                             device="cuda", mesh=None, specs=None) -> Dict[str, Any]:
     """The port's AdamW state (``optim.adamw``) holding the JAX package's
     ``state`` for ``cfg``'s parameters: mu, nu (and master, when present)
     unstacked as ``lm_params_from_reference`` unstacks the parameters, in
-    f32, and count as an int32 scalar."""
-    out = {key: {k: _f32(v, device) for k, v in _unstacked(cfg, state[key]).items()}
+    f32, and count as an int32 scalar. With ``mesh`` and ``specs``
+    (``train.step.shardings_for``'s spec trees): this rank's ZeRO-1 slices
+    (``models.common.ZeroLayout``) of its tensor-parallel slices, cut on the host."""
+    layout = None
+    if mesh is not None:
+        names = [n for n, _ in transformer.init_params(cfg, None, "meta").named_parameters()]
+        layout = ZeroLayout(names, specs, mesh)
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+        if layout is not None:
+            t = layout.slice(name, shard_tensor(t, leaf_spec(specs["params"], name), mesh))
+        return t.contiguous().to(device, copy=True)
+
+    out = {key: {k: leaf(k, v) for k, v in _unstacked(cfg, state[key]).items()
+                 if layout is None or layout.owns(k)}
            for key in ("mu", "nu", "master") if key in state}
     out["count"] = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
                                 device=device)

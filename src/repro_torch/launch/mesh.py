@@ -61,6 +61,12 @@ class Mesh(AxisCollectives):
     def axis_index(self, axis: str) -> int:
         return self.coords[axis]
 
+    def pmax_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum of ``x`` over the whole mesh."""
+        if self.size == 1:
+            return x
+        return self._reduce(x, dist.ReduceOp.MAX, None)
+
     def rank_of(self, coords: Dict[str, int]) -> int:
         """The rank at mesh point ``coords`` (missing axes at index 0)."""
         r = 0

@@ -24,7 +24,10 @@ heads cannot split, ``cache_specs`` splits its sequence instead
 (``seq_sharded``): each rank writes the positions it holds, and attention
 combines the ranks' partial softmaxes (flash-decoding): every query head
 on every rank, the maximum over "model", then one sum of the rescaled
-numerators and denominators. The cache is never gathered.
+numerators and denominators. The cache is never gathered. Under autograd
+(training, no cache) the block's input enters the head-split region
+through ``collectives.enter`` (its cotangent summed over "model"), and a
+kv head every rank holds enters where each rank picks its heads.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import collectives as C
 from .common import MODEL_AX, Spec, apply_rope, dense_init, soft_cap
 
 Tensor = torch.Tensor
@@ -146,9 +150,13 @@ def attend(
     n_rep = (h_loc * (tp if q_sh else 1)) // (kv_loc * (tp if kv_sh else 1))
     scale = query_scale if query_scale is not None else hd ** -0.5
 
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    # heads split over "model": the replicated x enters the split region
+    # (its cotangent summed over "model"); a kv head every rank holds is
+    # computed from x as it is, and enters where each rank picks its heads
+    xq = C.enter(mesh, x, MODEL_AX) if q_sh else x
+    q = torch.einsum("bsd,dhk->bshk", xq, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xq if kv_sh else x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xq if kv_sh else x, params["wv"])
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
 
@@ -159,7 +167,7 @@ def attend(
     else:
         if q_sh and not kv_sh:  # every kv head here: the one of each local query head
             kv_of = (r * h_loc + torch.arange(h_loc, device=x.device)) // n_rep
-            per_head = lambda t: t[:, :, kv_of]  # noqa: E731
+            per_head = lambda t: C.enter(mesh, t, MODEL_AX)[:, :, kv_of]  # noqa: E731
         else:
             per_head = lambda t: _repeat_kv(t, n_rep)  # noqa: E731
         if kv_cache is None:
@@ -184,7 +192,7 @@ def attend(
 
     if q_sh:  # this rank's heads' share, summed in f32 and rounded once
         y = torch.einsum("bqhk,hkd->bqd", out.float(), params["wo"].float())
-        return mesh.psum(y, MODEL_AX).to(x.dtype), new_cache
+        return C.sum_partials(mesh, y, MODEL_AX).to(x.dtype), new_cache
     return torch.einsum("bqhk,hkd->bqd", out, params["wo"]), new_cache
 
 

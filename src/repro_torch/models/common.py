@@ -22,7 +22,7 @@ tensors back together on every rank.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -103,20 +103,180 @@ def gather_tensor(x: Tensor, spec, mesh) -> Tensor:
     return x
 
 
-def leaf_spec(specs, name: str) -> "Spec":
+def zero1_shard_spec(spec, shape: Tuple[int, ...], dp_axes: Tuple[str, ...],
+                     dp_size: int) -> Spec:
+    """ZeRO-1, the JAX package's rule: an optimizer-state tensor is also
+    split over the data axes ``dp_axes`` (of ``dp_size`` ranks together) on
+    its first dimension that is not split yet and divides; ``spec`` as it
+    is when none does."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (dim, cur) in enumerate(zip(shape, entries)):
+        if cur is None and dim % dp_size == 0 and dim > 0:
+            entries[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+            return Spec(*entries)
+    return Spec(*spec)
+
+
+def leaf_spec(specs, name: str, keep_layer: bool = False) -> "Spec":
     """The spec of the parameter ``name`` (``"layers.3.attn.wq"``) in a
-    spec tree whose ``layers`` are stacked: the layer's entry is dropped."""
+    spec tree whose ``layers`` are stacked: the layer's entry is dropped
+    (kept first with ``keep_layer``)."""
     node, stacked = specs, False
     for part in name.split("."):
         if part.isdigit():
             stacked = True
             continue
         node = node[part]
-    if stacked:
+    if stacked and not keep_layer:
         if node[0] is not None:
             raise ValueError(f"{name}: a stacked spec {node} splits the layer axis")
         return Spec(*node[1:])
     return Spec(*node)
+
+
+def _layer_kind(name: str) -> str:
+    """``"layers.3.attn.wq"`` -> ``"layers.attn.wq"``."""
+    return ".".join(p for p in name.split(".") if not p.isdigit())
+
+
+class ZeroLayout:
+    """Where this rank's ZeRO-1 slice of every parameter lies, from the
+    spec trees ``specs`` (``train.step.shardings_for``: "params", "opt",
+    "batch"; the reference's, ``layers`` stacked), for the parameter names
+    ``names``. A parameter is
+
+      * whole: its state is not split (gradients summed over the data
+        axes);
+      * split along one dimension of this rank's tensor-parallel tensor;
+      * or one of a stack of layers whose layer axis is split: each data
+        rank owns L/n whole layers, and holds state for those alone.
+
+    ``reduce``, ``norms_sq`` and ``gather`` issue their collectives in the
+    order of ``names``, the same on every rank, a stack of layers n layers
+    at a time (n the ranks it splits over), so none holds a whole stack."""
+
+    def __init__(self, names: Iterable[str], specs: Dict[str, Any], mesh):
+        self.mesh = mesh
+        self.dp_axes = _axes(specs["batch"]["inputs"][0])
+        self.names: List[str] = list(names)
+        self.dim: Dict[str, Optional[int]] = {}  # split dimension; -1: the layer axis
+        self.axes: Dict[str, Tuple[str, ...]] = {}
+        self.model: Dict[str, bool] = {}  # split over "model" (tensor parallel)
+        self.groups: Dict[str, List[str]] = {}  # layer kind -> names by layer
+        for name in self.names:
+            ps = leaf_spec(specs["params"], name, keep_layer=True)
+            os_ = leaf_spec(specs["opt"]["mu"], name, keep_layer=True)
+            n = max(len(ps), len(os_))
+            ps, os_ = tuple(ps) + (None,) * (n - len(ps)), tuple(os_) + (None,) * (n - len(os_))
+            self.model[name] = any(MODEL_AX in _axes(e) for e in ps)
+            diff = [i for i in range(n) if ps[i] != os_[i]]
+            if not diff:
+                self.dim[name], self.axes[name] = None, ()
+                continue
+            stacked = name.split(".")[0] == "layers"
+            self.axes[name] = _axes(os_[diff[0]])
+            self.dim[name] = -1 if stacked and diff[0] == 0 else diff[0] - stacked
+            if self.dim[name] == -1:
+                self.groups.setdefault(_layer_kind(name), []).append(name)
+
+    def _chunks(self, name: str):
+        """For the first layer of a stack whose layer axis is split: lists
+        of n layers, the j-th of every rank's L/n in rank order (a chunk
+        reduce-scatters onto, and gathers from, one layer a rank); else
+        nothing."""
+        if self.dim[name] != -1 or name != self.groups[_layer_kind(name)][0]:
+            return []
+        group = self.groups[_layer_kind(name)]
+        n = shard_index(self.mesh, self.axes[name])[1]
+        per = len(group) // n
+        return [[group[r * per + j] for r in range(n)] for j in range(per)]
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank holds state for ``name``."""
+        if self.dim[name] != -1:
+            return True
+        group = self.groups[_layer_kind(name)]
+        index, n = shard_index(self.mesh, self.axes[name])
+        return group.index(name) // (len(group) // n) == index
+
+    def slice(self, name: str, t: Tensor) -> Tensor:
+        """This rank's ZeRO slice of ``t``, the rank's tensor-parallel
+        parameter ``name`` (or a tensor of its shape): a view."""
+        d = self.dim[name]
+        if d is None or d == -1:
+            return t
+        index, n = shard_index(self.mesh, self.axes[name])
+        m = t.shape[d] // n
+        return t.narrow(d, index * m, m)
+
+    def reduce(self, grads: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The gradients summed over the data axes, each rank keeping its
+        slices: ordered ``psum_scatter``s along each split (for a split
+        layer axis, of the stacked layers), ordered ``psum``s where the
+        state is whole."""
+        out: Dict[str, Tensor] = {}
+        index = {}
+        for name in self.names:
+            d, g = self.dim[name], grads[name]
+            if d is None:
+                for a in self.dp_axes:
+                    g = self.mesh.psum(g, a)
+                out[name] = g
+            elif d >= 0:
+                for a in self.axes[name]:
+                    g = self.mesh.psum_scatter(g, a, d)
+                out[name] = g
+            for chunk in self._chunks(name):
+                g = torch.stack([grads[k] for k in chunk])
+                for a in self.axes[name]:
+                    g = self.mesh.psum_scatter(g, a, 0)
+                index.setdefault(name, shard_index(self.mesh, self.axes[name])[0])
+                out[chunk[index[name]]] = g[0]
+        return out
+
+    def norms_sq(self, slices: Dict[str, Tensor]) -> Tensor:
+        """The squared norm of every leaf of the gradient whose ZeRO slices
+        are ``slices``, a vector in ``names``' order (the same on every
+        rank): each element counted once, the slices' sums of squares
+        summed in axis order over the ZeRO axes, and over "model" for the
+        tensor-parallel parameters."""
+        device = next(iter(slices.values())).device
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        sq = torch.stack([slices[n].to(torch.float32).square().sum() if n in slices else zero
+                          for n in self.names])
+        flag = lambda f: torch.tensor([f(n) for n in self.names], device=device)  # noqa: E731
+        split = flag(lambda n: self.dim[n] is not None)
+        part = torch.where(split, sq, zero)
+        for a in self.dp_axes:
+            part = self.mesh.psum(part, a)
+        sq = torch.where(split, part, sq)
+        if MODEL_AX in self.mesh.shape:
+            model = flag(lambda n: self.model[n])
+            sq = torch.where(model, self.mesh.psum(torch.where(model, sq, zero), MODEL_AX), sq)
+        return sq
+
+    def gather(self, slices: Dict[str, Tensor]):
+        """(name, this rank's whole tensor-parallel tensor) for every
+        parameter, from every rank's ZeRO slices ``slices`` (state, or
+        updated parameters), gathered over the ZeRO axes in ``names``'
+        order; a split stack of layers n layers at a time."""
+        for name in self.names:
+            d = self.dim[name]
+            if d is None:
+                yield name, slices[name]
+            elif d >= 0:
+                yield name, gather_tensor(slices[name], Spec(*(None,) * d, self.axes[name]),
+                                          self.mesh)
+            for chunk in self._chunks(name):
+                mine = next(slices[k] for k in chunk if k in slices).unsqueeze(0)
+                yield from zip(chunk, gather_tensor(mine, Spec(self.axes[name]), self.mesh))
+
+    def gather_into(self, params: Dict[str, Tensor], slices: Dict[str, Tensor]):
+        """Every rank's updated slices (``slices``, in the parameters'
+        dtypes) gathered over the ZeRO axes into ``params``, in place."""
+        for name, whole in self.gather(slices):
+            if whole is not params[name]:
+                params[name].copy_(whole)
 
 
 def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:

@@ -5,7 +5,9 @@ On a mesh (``mesh`` given, ``params`` this rank's slices under
 ``mlp_specs``) the block is Megatron's: ``w_in``/``w_gate`` hold this
 rank's d_ff columns, ``w_out`` the same rows, and the output is one sum
 over "model" in axis order, of f32 partials rounded once. A d_ff that does not divide the axis stays
-whole, and then no sum is taken."""
+whole, and then no sum is taken. Under autograd the input enters the
+split region through ``collectives.enter`` and the sum is
+``collectives.sum_partials``."""
 from __future__ import annotations
 
 from typing import Dict
@@ -13,6 +15,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from . import collectives as C
 from .common import MODEL_AX, Spec, dense_init
 
 Tensor = torch.Tensor
@@ -43,18 +46,20 @@ def mlp(params, x: Tensor, act: str, mesh=None, specs=None) -> Tensor:
     """``"gelu"`` is the tanh form, as ``jax.nn.gelu``'s default
     (``approximate=True``) is in the JAX package. ``mesh`` and ``specs``:
     see the module docstring."""
-    h = torch.einsum("bsd,df->bsf", x, params["w_in"])
+    split = mesh is not None and specs["w_out"][0] == MODEL_AX and mesh.axis_size(MODEL_AX) > 1
+    x_in = C.enter(mesh, x, MODEL_AX) if split else x  # the column-split region
+    h = torch.einsum("bsd,df->bsf", x_in, params["w_in"])
     if act == "swiglu":
-        g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+        g = torch.einsum("bsd,df->bsf", x_in, params["w_gate"])
         h = F.silu(g) * h
     elif act == "geglu":  # gemma2 gated-GELU
-        g = torch.einsum("bsd,df->bsf", x, params["w_gate"])
+        g = torch.einsum("bsd,df->bsf", x_in, params["w_gate"])
         h = F.gelu(g, approximate="tanh") * h
     elif act in ("gelu", "gelu_tanh"):
         h = F.gelu(h, approximate="tanh")
     else:
         raise ValueError(act)
-    if mesh is not None and specs["w_out"][0] == MODEL_AX and mesh.axis_size(MODEL_AX) > 1:
+    if split:
         y = torch.einsum("bsf,fd->bsd", h.float(), params["w_out"].float())
-        return mesh.psum(y, MODEL_AX).to(x.dtype)
+        return C.sum_partials(mesh, y, MODEL_AX).to(x.dtype)
     return torch.einsum("bsf,fd->bsd", h, params["w_out"])

@@ -34,6 +34,14 @@ Tokens are routed on the rank's own tokens in both, so a sharded layer
 drops other assignments than one device would (capacity of the local T),
 exactly as the JAX package's does. The aux loss is averaged over "model"
 and the data axes. On one device both modes are one local computation.
+
+Under autograd (``collectives``): in "a2a" each model rank routes its own
+sequence chunk, so the router's gradient (and an unsplit shared expert's)
+is summed over "model", the all-to-alls' backward is the same exchange,
+and the shared experts' sum over "model" (other tokens' partials, as the
+JAX package adds them) takes the sum of the cotangents; in "dense_ep"
+every model rank routes the same tokens, so its aux mean over "model" is
+a mean of one value.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import torch.nn.functional as F
 
 from ..core import local_spgemm
 from ..core.sparse import SparseCOO
+from . import collectives as C
 from .common import MODEL_AX, Spec, batch_axes, dense_init
 
 Tensor = torch.Tensor
@@ -202,15 +211,21 @@ def _expert_ffn(buf: Tensor, w_in: Tensor, w_gate: Tensor, w_out: Tensor) -> Ten
     return torch.einsum("ecf,efd->ecd", F.silu(g) * h, w_out)
 
 
-def _shared_ffn(params, x: Tensor, mesh=None) -> Tensor:
+def _shared_ffn(params, x: Tensor, mesh=None, own_tokens: bool = False) -> Tensor:
     """The shared experts' FFN; with ``mesh`` the weights are this rank's
-    F/tp slice and the output is summed over "model"."""
+    F/tp slice and the output is summed over "model". ``own_tokens``: each
+    model rank passes its own tokens ("a2a"), and the sum adds other
+    tokens' partials, as the JAX package's does; every rank then uses the
+    sum, so its backward sums the cotangents (``all_reduce``)."""
+    if mesh is not None and not own_tokens:
+        x = C.enter(mesh, x, MODEL_AX)
     h = x @ params["w_in"]
     g = x @ params["w_gate"]
     if mesh is None:
         return (F.silu(g) * h) @ params["w_out"]
     out = (F.silu(g) * h).float() @ params["w_out"].float()  # f32 partials, rounded once
-    return mesh.psum(out, MODEL_AX).to(x.dtype)
+    total = C.all_reduce if own_tokens else C.sum_partials
+    return total(mesh, out, MODEL_AX).to(x.dtype)
 
 
 def _routed(params, xf: Tensor, cfg: MoEConfig, experts):
@@ -240,6 +255,7 @@ def moe_layer(params, x: Tensor, cfg: MoEConfig, mode: str = "a2a", mesh=None
     shared = params.get("shared")
     ffn = lambda buf: _expert_ffn(buf, params["w_in"], params["w_gate"],  # noqa: E731
                                   params["w_out"])
+    own_tokens = False
     if tp == 1:
         out, aux = _routed(params, x.reshape(B * S, D), cfg, ffn)
         if shared is not None:
@@ -249,36 +265,45 @@ def moe_layer(params, x: Tensor, cfg: MoEConfig, mode: str = "a2a", mesh=None
         E = cfg.n_experts
         if E % tp:
             raise ValueError(f"{E} experts do not split over a model axis of {tp}")
-        e_loc, r = E // tp, mesh.axis_index(MODEL_AX)
-        shared_mesh = mesh if (cfg.n_shared * cfg.d_expert) % tp == 0 else None
-        if mode == "a2a" and S % tp == 0:
+        e_loc = E // tp
+        shared_split = (cfg.n_shared * cfg.d_expert) % tp == 0
+        own_tokens = mode == "a2a" and S % tp == 0
+        if own_tokens:
             s_loc = S // tp
-            xf = x[:, r * s_loc:(r + 1) * s_loc].reshape(B * s_loc, D)
+            xf = C.take_block(mesh, x, MODEL_AX, 1).reshape(B * s_loc, D)
+            # every model rank routes its own chunk: the router's gradient
+            # (and an unsplit shared expert's) sums over "model"
+            params = {**dict(params.items()), "router": C.enter(mesh, params["router"], MODEL_AX)}
+            if shared is not None and not shared_split:
+                shared = {k: C.enter(mesh, w, MODEL_AX) for k, w in dict(shared.items()).items()}
 
             def experts(buf):
                 cap = buf.shape[1]
-                mine = mesh.all_to_all(buf.reshape(tp, e_loc, cap, D), MODEL_AX)
+                mine = C.all_to_all(mesh, buf.reshape(tp, e_loc, cap, D), MODEL_AX)
                 y = ffn(mine.transpose(0, 1).reshape(e_loc, tp * cap, D))
                 y = y.reshape(e_loc, tp, cap, D).transpose(0, 1)
-                return mesh.all_to_all(y, MODEL_AX).reshape(E, cap, D)
+                return C.all_to_all(mesh, y, MODEL_AX).reshape(E, cap, D)
 
             out, aux = _routed(params, xf, cfg, experts)
             if shared is not None:
-                out = out + _shared_ffn(shared, xf, shared_mesh)
-            out = torch.cat(tuple(mesh.all_gather(out.reshape(B, s_loc, D), MODEL_AX)), dim=1)
+                out = out + _shared_ffn(shared, xf, mesh if shared_split else None,
+                                        own_tokens=True)
+            out = C.gather(mesh, out.reshape(B, s_loc, D), MODEL_AX, 1)
         else:  # dense_ep
             xf = x.reshape(B * S, D)
 
             def experts(buf):
-                y = ffn(buf[r * e_loc:(r + 1) * e_loc])
-                return mesh.all_gather(y, MODEL_AX).reshape(E, *buf.shape[1:])
+                y = ffn(C.take_block(mesh, buf, MODEL_AX, 0))
+                return C.gather(mesh, y, MODEL_AX, 0)
 
             out, aux = _routed(params, xf, cfg, experts)
             if shared is not None:
-                out = out + _shared_ffn(shared, xf, shared_mesh)
+                out = out + _shared_ffn(shared, xf, mesh if shared_split else None)
             out = out.reshape(B, S, D)
     if mesh is not None:
-        for ax in (MODEL_AX,) + batch_axes(mesh):
-            if mesh.axis_size(ax) > 1:
-                aux = mesh.psum(aux, ax) / mesh.axis_size(ax)
+        # the mean over "model" of partials ("a2a": each rank's own tokens)
+        # or of one value every model rank computed alike ("dense_ep")
+        aux = (C.mean_of_partials(mesh, aux, (MODEL_AX,)) if own_tokens
+               else C.mean_replicated(mesh, aux, MODEL_AX))
+        aux = C.mean_of_partials(mesh, aux, batch_axes(mesh))
     return out, aux

@@ -42,6 +42,13 @@ every rank: the JAX package's ``_act_constraint`` and
 ``_gather_for_attn`` act only under ``act_sharding="seq"``, which no
 config sets, and are not ported. The ssm and hybrid families run on a
 mesh only with a "model" axis of 1 (ROADMAP).
+
+Training on a mesh (``forward``/``lm_loss(..., mesh=)``, or
+``lm_loss_shard`` on this rank's share of the batch): the same paths,
+every collective differentiable (``collectives``), the MoE in "a2a", and
+the vocab-parallel cross entropy (``_VocabParallelXent``). Every rank
+holds the global loss, and its gradient is what its share of the batch
+contributes; summed over the data axes it is the gradient of the loss.
 """
 from __future__ import annotations
 
@@ -53,12 +60,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn_mod
+from . import collectives as C
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import (MODEL_AX, ParamTree, Spec, batch_axes, batch_shard, dense_init,
                      embed_init, gather_tensor, leaf_spec, rms_norm, shard_index, shard_tensor,
-                     soft_cap)
+                     soft_cap, unflatten)
 
 Tensor = torch.Tensor
 
@@ -285,6 +293,19 @@ def param_specs(cfg: ModelConfig, tp: int = 1) -> Dict[str, Any]:
     return specs
 
 
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameters' shapes as the JAX package's tree holds them, in
+    ``param_specs``' tree: ``layers`` stacked on a leading layer axis."""
+    flat: Dict[str, Tuple[int, ...]] = {}
+    for name, p in init_params(cfg, None, "meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            flat[".".join(["layers"] + parts[2:])] = (cfg.n_layers,) + tuple(p.shape)
+        else:
+            flat[name] = tuple(p.shape)
+    return unflatten(flat)
+
+
 def cache_specs(cfg: ModelConfig, mesh, batch: Optional[int] = None,
                 s_max: Optional[int] = None) -> Dict[str, Any]:
     """The cache's spec tree, the JAX package's: the batch over the data
@@ -372,11 +393,11 @@ def _embed(cfg: ModelConfig, params, inputs: Tensor, mesh=None) -> Tensor:
             local = tok - off
             hit = (local >= 0) & (local < table.shape[0])
             h = torch.where(hit[..., None], table[local.clamp(0, table.shape[0] - 1)], 0)
-            h = mesh.psum(h, MODEL_AX)
+            h = C.sum_partials(mesh, h, MODEL_AX)
         else:
             h = table[tok]
             if mesh is not None and table.shape[1] < cfg.d_model:  # hidden split: gather
-                h = gather_tensor(h, Spec(None, None, MODEL_AX), mesh)
+                h = C.gather(mesh, h, MODEL_AX, 2)
         h = h.to(cd)
     else:
         h = inputs.to(cd)
@@ -404,18 +425,26 @@ def _mask_pad_vocab(cfg: ModelConfig, logits: Tensor, offset: int = 0) -> Tensor
     return torch.where(live, logits, -1e30)
 
 
-def _logits(cfg: ModelConfig, params, h: Tensor, mesh=None) -> Tensor:
-    """(B, S, padded vocab) f32: final norm, unembed, soft-cap, pad mask.
-    On a mesh whose "model" axis splits the vocab, each rank computes its
-    block and the blocks are gathered once."""
+def _logits_block(cfg: ModelConfig, params, h: Tensor, mesh=None) -> Tuple[Tensor, int]:
+    """(logits f32 of this rank's vocab block, the block's first vocab
+    entry): final norm, unembed, soft-cap, pad mask. Without a vocab split
+    the block is the whole padded vocab."""
     h = rms_norm(h, params["final_norm"])
     w_out = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", h, w_out.to(cfg.compute_dtype))
     split = _vocab_split(cfg, mesh)
+    if split is not None:  # the replicated h enters the vocab-split unembed
+        h = C.enter(mesh, h, MODEL_AX)
+    logits = torch.einsum("bsd,dv->bsv", h, w_out.to(cfg.compute_dtype))
     offset = 0 if split is None else split * w_out.shape[1]
-    logits = _mask_pad_vocab(cfg, soft_cap(logits.float(), cfg.final_softcap), offset)
-    if split is not None:
-        logits = gather_tensor(logits, Spec(None, None, MODEL_AX), mesh)
+    return _mask_pad_vocab(cfg, soft_cap(logits.float(), cfg.final_softcap), offset), offset
+
+
+def _logits(cfg: ModelConfig, params, h: Tensor, mesh=None) -> Tensor:
+    """(B, S, padded vocab) f32. On a mesh whose "model" axis splits the
+    vocab, each rank computes its block and the blocks are gathered once."""
+    logits, _ = _logits_block(cfg, params, h, mesh)
+    if _vocab_split(cfg, mesh) is not None:
+        logits = C.gather(mesh, logits, MODEL_AX, 2)
     return logits
 
 
@@ -439,18 +468,20 @@ def _remat(cfg: ModelConfig, body, *args):
     return body(*args)
 
 
-def forward(cfg: ModelConfig, params, inputs: Tensor) -> Tuple[Tensor, Tensor]:
-    """inputs (B,S) tokens or (B,S,D) embeds. Returns (logits (B,S,padded
-    vocab) f32, aux loss scalar). Differentiable; run it under
-    ``torch.no_grad()`` or ``inference_mode()`` to serve."""
-    h = _embed(cfg, params, inputs)
+def _hidden(cfg: ModelConfig, params, inputs: Tensor, shard: Optional["_Shard"] = None
+            ) -> Tuple[Tensor, Tensor]:
+    """(the last layer's output, aux loss): the embedding and every layer,
+    on this rank's share of the batch with ``shard``."""
+    mesh = shard.mesh if shard is not None else None
+    tp_kw = dict(mesh=mesh, tp_specs=shard.layer) if shard is not None else {}
+    h = _embed(cfg, params, inputs, mesh)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device).expand(B, S)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = params["layers"]
     if cfg.family == "attn":
         def body(h, lp, window):
-            h, aux, _ = _attn_layer_fwd(cfg, _at_use(cfg, lp), h, positions, window)
+            h, aux, _ = _attn_layer_fwd(cfg, _at_use(cfg, lp), h, positions, window, **tp_kw)
             return h, aux
 
         for lp, window in zip(layers, _layer_windows(cfg)):
@@ -474,19 +505,95 @@ def forward(cfg: ModelConfig, params, inputs: Tensor) -> Tuple[Tensor, Tensor]:
 
         for group in _mamba_groups(cfg):
             h = _remat(cfg, group_body, h, group)
-    return _logits(cfg, params, h), aux_total
+    return h, aux_total
 
 
-def lm_loss(cfg: ModelConfig, params, inputs: Tensor, targets: Tensor,
+def forward(cfg: ModelConfig, params, inputs: Tensor, mesh=None) -> Tuple[Tensor, Tensor]:
+    """inputs (B,S) tokens or (B,S,D) embeds. Returns (logits (B,S,padded
+    vocab) f32, aux loss scalar). Differentiable; run it under
+    ``torch.no_grad()`` or ``inference_mode()`` to serve. With ``mesh``:
+    global inputs and logits, this rank's model slices (``param_specs``),
+    the batch split over the data axes (it must divide them), the MoE in
+    "a2a" mode, as the JAX package's training forward."""
+    if mesh is None:
+        h, aux = _hidden(cfg, params, inputs)
+        return _logits(cfg, params, h), aux
+    shard = _Shard(cfg, mesh, inputs.shape[0], train=True)
+    h, aux = _hidden(cfg, params, shard.local(inputs), shard)
+    logits = _logits(cfg, params, h, mesh)
+    return C.gather(mesh, logits, shard.batch, 0), aux
+
+
+def lm_loss(cfg: ModelConfig, params, inputs: Tensor, targets: Tensor, mesh=None,
             aux_weight: float = 0.01) -> Tensor:
     """Mean next-token cross entropy over (B, S) plus ``aux_weight`` times
-    the MoE balance loss: the JAX package's ``lm_loss`` on one device,
-    whose vocab-parallel form (``_sharded_xent``) it equals on a 1 x 1 mesh.
-    The padded vocab's logits are -1e30, so they take no probability."""
-    logits, aux = forward(cfg, params, inputs)
-    lse = torch.logsumexp(logits, dim=-1)  # (B, S)
-    target = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return (lse - target).mean() + aux_weight * aux
+    the MoE balance loss: the JAX package's ``lm_loss``. The padded vocab's
+    logits are -1e30, so they take no probability. With ``mesh``: global
+    inputs and targets (``lm_loss_shard`` takes this rank's share)."""
+    if mesh is None:
+        logits, aux = forward(cfg, params, inputs)
+        lse = torch.logsumexp(logits, dim=-1)  # (B, S)
+        target = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return (lse - target).mean() + aux_weight * aux
+    shard = _Shard(cfg, mesh, inputs.shape[0], train=True)
+    return lm_loss_shard(cfg, params, shard.local(inputs), shard.local(targets), mesh,
+                         aux_weight)
+
+
+def lm_loss_shard(cfg: ModelConfig, params, inputs: Tensor, targets: Tensor, mesh,
+                  aux_weight: float = 0.01) -> Tensor:
+    """``lm_loss`` on ``mesh`` from this rank's share of the global batch
+    (split over the data axes): the JAX package's mesh loss, ``nll.mean()``
+    over the global batch (each rank's mean, averaged over the data axes)
+    plus ``aux_weight`` times the aux mean over every axis, the same value
+    on every rank. Its gradient on a rank is what that rank's share
+    contributes: summed over the data axes, the gradient of the loss. The
+    cross entropy is vocab-parallel (``_VocabParallelXent``) when the
+    unembed splits the vocab over "model"."""
+    shard = _Shard(cfg, mesh, inputs.shape[0] * _dp_size(mesh), train=True)
+    h, aux = _hidden(cfg, params, inputs, shard)
+    logits, offset = _logits_block(cfg, params, h, mesh)
+    if _vocab_split(cfg, mesh) is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        nll = lse - torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    else:
+        nll = _VocabParallelXent.apply(logits, targets.long(), mesh, offset)
+    return C.mean_of_partials(mesh, nll.mean(), batch_axes(mesh)) + aux_weight * aux
+
+
+def _dp_size(mesh) -> int:
+    return math.prod(mesh.shape[a] for a in batch_axes(mesh))
+
+
+class _VocabParallelXent(torch.autograd.Function):
+    """Megatron's vocab-parallel cross entropy, the JAX package's
+    ``_vp_xent_local``: ``lg`` (b, s, v_loc) f32 is this rank's vocab block
+    (from ``offset``), the result (b, s) the nll, the same on every model
+    rank: the maximum over "model", one sum of the exponentials, the
+    target's logit picked by the rank holding it and summed. Backward:
+    (softmax − onehot)·g on this rank's block, with g the whole cotangent
+    every rank holds (the nll is replicated over "model")."""
+
+    @staticmethod
+    def forward(ctx, lg, targets, mesh, offset):
+        v_loc = lg.shape[-1]
+        m = mesh.pmax(lg.amax(-1), MODEL_AX)  # (b, s)
+        s = mesh.psum(torch.exp(lg - m[..., None]).sum(-1), MODEL_AX)
+        lse = m + torch.log(s)
+        t_loc = targets - offset
+        in_range = (t_loc >= 0) & (t_loc < v_loc)
+        tl = torch.gather(lg, -1, t_loc.clamp(0, v_loc - 1)[..., None])[..., 0]
+        tl = mesh.psum(torch.where(in_range, tl, 0.0), MODEL_AX)
+        ctx.save_for_backward(lg, lse, t_loc, in_range)
+        return lse - tl
+
+    @staticmethod
+    def backward(ctx, g):
+        lg, lse, t_loc, in_range = ctx.saved_tensors
+        d = torch.exp(lg - lse[..., None])  # softmax
+        hit = torch.where(in_range, t_loc, 0)[..., None]
+        d.scatter_add_(-1, hit, -in_range[..., None].to(d.dtype))  # − onehot
+        return d * g[..., None], None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +637,8 @@ class _Shard:
     tensor parallelism, whether the batch is split over the data axes,
     and whether the cache's sequence is split over "model"."""
 
-    def __init__(self, cfg: ModelConfig, mesh, batch: int, s_max: Optional[int] = None):
+    def __init__(self, cfg: ModelConfig, mesh, batch: int, s_max: Optional[int] = None,
+                 train: bool = False):
         self.mesh = mesh
         tp = _tp(mesh)
         if tp > 1 and cfg.family != "attn":
@@ -540,6 +648,12 @@ class _Shard:
         self.layer = {"attn": attn_mod.attention_specs(cfg.eff_heads, cfg.kv_heads, tp),
                       "mlp": mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp)}
         self.batch = batch_shard(mesh, batch)
+        if train:  # no cache; the batch must split, as the reference's in_shardings ask
+            if batch_axes(mesh) and not self.batch:
+                raise ValueError(f"a training batch of {batch} does not split over the data "
+                                 f"axes {mesh.shape}")
+            self.seq_sharded = False
+            return
         k_spec = cache_specs(cfg, mesh, batch, s_max).get("k")
         self.seq_sharded = k_spec is not None and k_spec[2] == MODEL_AX
 

@@ -14,7 +14,8 @@ fault injection.
     step + steps, the straggler EWMA, and a save every ``ckpt_every`` steps
     and at the last. The state is a dict of tensors (nested dicts allowed)
     through ``checkpoint.store``; a model (``nn.Module``) in it is stored
-    as its ``state_dict()`` and restored into itself.
+    as its ``state_dict()`` and restored into itself. On a process mesh
+    every rank runs the loop and rank 0 writes (``mesh=``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from collections import deque
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
+import torch
 from torch import nn
 
 from ..checkpoint import store
@@ -168,23 +170,54 @@ def run_training(
     batch_fn: Callable[[int], Any],  # step -> batch
     rc: RuntimeConfig,
     injector: Optional[FailureInjector] = None,
+    mesh=None,
+    codec=None,
 ) -> TrainLoopResult:
     """The restartable loop (see the module docstring). A restored state's
-    tensors go where ``make_state`` put them, in their dtypes."""
-    ckpt = store.AsyncCheckpointer(rc.ckpt_dir, keep=rc.keep)
+    tensors go where ``make_state`` put them, in their dtypes.
+
+    On a process mesh (``mesh`` of more than one rank) every rank runs the
+    loop, and ``codec`` (``train.step.MeshState``) maps this rank's state
+    to the whole one as host arrays on rank 0 (``encode``, collective:
+    every rank calls it) and back (``decode``). Rank 0 alone writes
+    checkpoints, of the whole state, in the one-card layout. A restore
+    waits for rank 0's write, takes the step rank 0 finds newest (a MAX
+    over the mesh), and every rank reads it one leaf at a time
+    (``store.LeafReader``) and keeps its slices. The restart, rollback and
+    straggler decisions are MAX-reduced over the mesh at each step, so
+    every rank takes the same branch; an injected failure fires before the
+    step's collectives."""
+    meshed = mesh is not None and mesh.size > 1
+    writer = not meshed or mesh.rank == 0
+    ckpt = store.AsyncCheckpointer(rc.ckpt_dir, keep=rc.keep) if writer else None
     injector = injector or FailureInjector()
+
+    def any_rank(*flags) -> list:
+        if not meshed:
+            return [bool(f) for f in flags]
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32, device=mesh.device)
+        return [bool(x) for x in mesh.pmax_all(t).tolist()]
 
     def cold_or_warm_start():
         # drain an in-flight write before listing the store: latest_step
         # sweeps step_*.tmp dirs, and would sweep a running writer's
-        ckpt.wait()
-        last = store.latest_step(rc.ckpt_dir)
+        last = None
+        if writer:
+            ckpt.wait()
+            last = store.latest_step(rc.ckpt_dir)
+        if meshed:
+            mine = torch.tensor(-1 if last is None else last, dtype=torch.int64,
+                                device=mesh.device)
+            last = int(mesh.pmax_all(mine))
+            last = None if last < 0 else last
         state = make_state()
-        if last is not None:
-            arrays = store.restore(rc.ckpt_dir, last, _arrays(state))
-            log.info("restored checkpoint at step %d", last)
-            return _restored(state, arrays), last
-        return state, 0
+        if last is None:
+            return state, 0
+        log.info("restored checkpoint at step %d", last)
+        if meshed:
+            with store.LeafReader(rc.ckpt_dir, last) as leaves:
+                return codec.decode(state, leaves), last
+        return _restored(state, store.restore(rc.ckpt_dir, last, _arrays(state))), last
 
     state, start = cold_or_warm_start()
     losses: list = []
@@ -195,7 +228,13 @@ def run_training(
 
     while step < steps:
         try:
-            injector.maybe_fail(step)
+            try:
+                injector.maybe_fail(step)
+                failed = None
+            except RuntimeError as e:
+                failed = e
+            if any_rank(failed)[0]:
+                raise failed or RuntimeError(f"a peer failed at step {step}")
             t0 = time.perf_counter()
             injector.maybe_straggle(step)
             batch_step = step
@@ -204,17 +243,20 @@ def run_training(
             state, metrics = step_fn(state, batch_fn(batch_step))
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
-            if ewma.observe(dt):
+            slow, bad = any_rank(ewma.observe(dt), not np.isfinite(loss))
+            if slow:
                 straggler_events += 1
                 log.warning("straggler: step %d took %.3fs (ewma %.3fs)", step, dt, ewma.ewma)
 
-            if not np.isfinite(loss):
+            if bad:
                 raise FloatingPointError(f"non-finite loss at step {step}")
 
             losses.append(loss)
             step += 1
             if step % rc.ckpt_every == 0 or step == steps:
-                ckpt.save(step, _arrays(state))
+                arrays = codec.encode(state) if meshed else _arrays(state)
+                if writer:
+                    ckpt.save(step, arrays, owned=meshed)
         except FloatingPointError as e:
             rollbacks += 1
             if rollbacks > rc.max_rollbacks:
@@ -228,7 +270,8 @@ def run_training(
             log.warning("%s — restart path", e)
             state, step = cold_or_warm_start()
             losses = losses[: step - start]
-    ckpt.wait()
+    if writer:
+        ckpt.wait()
     return TrainLoopResult(
         final_step=step,
         losses=losses,

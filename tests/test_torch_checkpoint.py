@@ -4,8 +4,9 @@ package's store (``repro.checkpoint.store``).
 
   * contract: atomic rename and the stale ``.tmp`` sweep, foreign entries
     ignored, every corruption (truncation, altered bytes, a missing leaf)
-    refused with IOError, keep-N GC, the async writer's accounting, its
-    snapshot and its error surfacing;
+    refused with IOError (also by ``LeafReader``, which reads a leaf at a
+    time), keep-N GC, the async writer's accounting, its snapshot and its
+    error surfacing;
   * format: the same arrays saved by both stores give equal manifests
     (leaf names, shapes, dtypes, hashes, meta), and each package's
     ``restore_arrays`` and ``restore`` read the other's checkpoint, bit
@@ -135,6 +136,22 @@ def test_corruption_refused(tmp_path, damage, match):
         store.restore_arrays(str(tmp_path), 3)
     with pytest.raises(IOError, match=match):
         store.restore(str(tmp_path), 3, _state())
+    with pytest.raises(IOError, match=match):
+        with store.LeafReader(str(tmp_path), 3) as leaves:
+            for k in leaves.leaves:
+                leaves[k]
+
+
+def test_leaf_reader_reads_the_leaves_restore_arrays_reads(tmp_path):
+    state = {"a": {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)},
+             "b": torch.tensor(3, dtype=torch.int32), "c": torch.ones(4, dtype=torch.bfloat16)}
+    store.save(str(tmp_path), 2, state)
+    whole = store.restore_arrays(str(tmp_path), 2)
+    with store.LeafReader(str(tmp_path), 2) as leaves:
+        assert sorted(leaves.leaves) == sorted(whole)
+        for k, a in whole.items():
+            got = leaves[k]
+            assert got.dtype == a.dtype and np.array_equal(got, a), k
 
 
 def test_tree_mismatch_and_shape(tmp_path):
