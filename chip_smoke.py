@@ -3,8 +3,8 @@
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # phases 1-17, one card (14, 15 run after 6; 10 to 13 before 9)
-    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11, 12d, 13's grid parts, 16, 17; four cards
+    python3 chip_smoke.py            # phases 1-18, one card (14, 15 run after 6; 10 to 13 before 9)
+    python3 chip_smoke.py --chips 4  # phases 1, 2, 9, 11, 12d, 13's grid parts, 16-18; four cards
 
 Phases (any failed check raises, so the script exits non-zero):
 
@@ -85,9 +85,9 @@ Phases (any failed check raises, so the script exits non-zero):
      path), then a profile (top ops by device time, and each
      segment-reduce launch: runs, entries, device time, bound). Then the
      loop, twice (both trajectories printed, and whether they are
-     bit-identical), then its first 2 iterations held against the host
+     bit-identical), then its first iteration held against the host
      loop's (mcl_iterate_host: the same card multiply, pruning in numpy;
-     2 of the 4 iterations, to keep the script within its limit): nnz
+     1 of the 4 iterations, to keep the script within its limit): nnz
      trajectories equal within 1e-5
      per iteration (every difference printed: f32 sums in another order can
      move an entry across the threshold), chaos within rtol 1e-3, identical
@@ -336,14 +336,15 @@ Phases (any failed check raises, so the script exits non-zero):
           bound, torch.sparse.mm), and dvals' plain time with its bound.
 
  16. LM serving on a process mesh (repro_torch.launch.mesh,
-     ServeEngine(..., mesh=)); runs last. OLMoE-1B-7B at its published
-     width and depth in bf16, seeded, on a 2x2 ("data" x "model") mesh:
-     four ranks sharing this card over gloo (--chips 4: one a card over
-     NCCL), each drawing every leaf whole and keeping its slice (half the
-     experts, heads, hidden and vocab). EngineConfig(max_batch=8,
-     s_max=512), 8 requests of seeded prompts of 64-256 tokens, 16 new
-     tokens each, run twice: every rank and both runs the same tokens,
-     SpMM exactly 2 x 16 x (prefills + ticks) launches a rank a run (each
+     ServeEngine(..., mesh=)); runs after 9. OLMoE-1B-7B at its published
+     width in bf16, 8 of its 16 layers (--chips 4: all 16), seeded, on a
+     2x2 ("data" x "model") mesh: four ranks sharing this card over gloo
+     (--chips 4: one a card over NCCL), each drawing every leaf whole and
+     keeping its slice (half the experts, heads, hidden and vocab).
+     EngineConfig(max_batch=8, s_max=512), 8 requests of seeded prompts of
+     64-256 tokens, 16 new tokens each, run twice: every rank and both runs
+     the same tokens, SpMM exactly 2 x layers x (prefills + ticks)
+     launches a rank a run (each
      count set to 0 just before the run). Then through the step builders
      a prefill of 4 x 64 tokens and one decode, held against one card in
      bf16 within atol 0.125: the prefill against the one-card model with
@@ -368,6 +369,21 @@ Phases (any failed check raises, so the script exits non-zero):
      the updated parameters within AdamW's first-step sign bound (see
      TRAIN_MESH_*). Logs each rank's init, peak memory, step times and the
      last step's share inside collectives.
+ 18. The ssm and hybrid families on a process mesh; runs after 17, on the
+     same 2x2 mesh of four gloo ranks (--chips 4: one a card over NCCL),
+     through phases 16's and 17's code with their own settings (SSM_*):
+     18a serves Zamba2-2.7B at its published width in bf16, seeded (the
+     Mamba2 blocks tensor parallel, the shared attention block on TP
+     attention and MLP), 4 requests of 64-256 tokens (seed 18), 8 new
+     tokens each, twice, with the one-card check of a 4 x 64 prefill and
+     a decode; 18b trains Mamba2-370M at its published width (f32
+     masters, bf16, remat, ZeRO-1 AdamW), 3 steps of batch 4 x 512 after
+     the f32 step checked against one card. No kernel of the port
+     launches there (the SSD scan is plain PyTorch, as the reference's is
+     jnp): the SpMM counts stay 0. Logs each rank's peak memory, tick or
+     step times, the share inside collectives and the collectives of a
+     model call, and the phase's seconds beside the card's name and power
+     limit.
 
 The last two lines are a JSON object with one entry per kernel (the seven
 that replace the TPU kernels, the hash row per batch, and the segment
@@ -379,7 +395,7 @@ segment and binned rows their launches in 12 and in 13, the segment row
 its launches per rank in 9's serving, and the SpMM row its accumulate
 mode's check, phase 14's MoE launches and timings, and phase 15's training
 launches, forward and backward, and timings, and phases 16's and 17's
-launches per rank) and the JSON result line; with --chips 4 only
+launches per rank; phase 18 launches none) and the JSON result line; with --chips 4 only
 the result line.
 Without a CUDA device (or the four cards --chips 4 asks for), or without
 the repository's src/ beside this file, it exits non-zero and prints no
@@ -1321,10 +1337,11 @@ def profile_segment_reduce(label, fn):
 
 
 # the n = 2^18 host loop's depth: of the device loop's 4 iterations, the
-# first 2 (the host loop pulls ~17 GB a later iteration through numpy: 4
+# first (the host loop pulls ~17 GB a later iteration through numpy: 4
 # iterations took 182.48 s of the script's 1107.7 s on an H100 80GB HBM3 at
-# 700 W); the device loop run again to that depth is its reference
-MCL_HOST_ITERS = 2
+# 700 W, 2 took 102.08 s); the device loop run again to that depth is its
+# reference
+MCL_HOST_ITERS = 1
 
 
 def mcl_sparse_input():
@@ -4856,7 +4873,10 @@ def train_phase():
 # phase 16: LM serving on a ("data", "model") process mesh
 # ---------------------------------------------------------------------------
 MESH_SHAPE = (2, 2)  # (data, model): 4 ranks
-MESH_LAYERS = 16  # OLMoE-1B-7B's published depth
+# OLMoE-1B-7B's depth on the mesh: 8 of its 16 layers over gloo (the four
+# ranks share one card; 16 took 31-38 s of the script's time on an H100),
+# all 16 over NCCL with a card a rank
+MESH_LAYERS = {"gloo": 8, "nccl": 16}
 MESH_REQUESTS = 8
 MESH_PROMPT = (64, 256)  # prompt lengths drawn from this range, both ends included
 MESH_NEW = 16
@@ -4870,19 +4890,24 @@ MESH_CHECK = (4, 64, 128)  # the one-card check: batch, prompt length, s_max
 # (decode): 4x the larger
 MESH_BF16_TOL = dict(rtol=0.0, atol=0.125)
 MESH_TIMEOUT_S = 600  # one spawn of the mesh phase, every collective included
+# the serving phase's settings (phase 18 serves another arch with its own)
+P16 = {backend: dict(tag="16", arch=OLMOE, layers=layers, requests=MESH_REQUESTS,
+                     prompt=MESH_PROMPT, new=MESH_NEW, batch=MESH_BATCH, s_max=MESH_S_MAX,
+                     check=MESH_CHECK, seed=LM_SEED + 16, tol=MESH_BF16_TOL)
+       for backend, layers in MESH_LAYERS.items()}
 
 
-def mesh_prompts(cfg):
-    rng = np.random.default_rng(LM_SEED + 16)
-    lengths = rng.integers(MESH_PROMPT[0], MESH_PROMPT[1] + 1, MESH_REQUESTS)
+def mesh_prompts(cfg, p):
+    rng = np.random.default_rng(p["seed"])
+    lengths = rng.integers(p["prompt"][0], p["prompt"][1] + 1, p["requests"])
     return [rng.integers(0, cfg.vocab, int(s)).astype(np.int32) for s in lengths]
 
 
-def mesh_check_inputs(cfg, device):
+def mesh_check_inputs(cfg, device, p):
     import torch
 
-    b, s, _ = MESH_CHECK
-    g = torch.Generator(device=device).manual_seed(LM_SEED + 17)
+    b, s, _ = p["check"]
+    g = torch.Generator(device=device).manual_seed(p["seed"] + 1)
     return (torch.randint(0, cfg.vocab, (b, s), generator=g, device=device),
             torch.randint(0, cfg.vocab, (b, 1), generator=g, device=device))
 
@@ -4922,12 +4947,13 @@ class CollectiveClock:
 
 
 def mesh_serve_rank(mesh, p16):
-    """Phase 16 on one rank: OLMoE-1B-7B (``p16["layers"]`` layers) cut to
-    this rank's slices at init, the stream served twice through the
-    engine on the mesh (run 2 under ``CollectiveClock``), each run's SpMM
-    count set to 0 just before and read just after; then the one-card
-    check's prefill and one decode through the step builders. Returns the
-    tokens, counts, times and the check's logits and cache slices."""
+    """Phase 16 (and 18's serving) on one rank: ``p16["arch"]`` at
+    ``p16["layers"]`` layers cut to this rank's slices at init, the stream
+    served twice through the engine on the mesh (run 2 under
+    ``CollectiveClock``), each run's SpMM count set to 0 just before and
+    read just after; then the one-card check's prefill and one decode
+    through the step builders, each call's collectives counted. Returns
+    the tokens, counts, times and the check's logits and cache slices."""
     import dataclasses
 
     import torch
@@ -4938,7 +4964,7 @@ def mesh_serve_rank(mesh, p16):
     from repro_torch.serve import EngineConfig, Request, ServeEngine
     from repro_torch.train import build_decode_step, build_prefill_step
 
-    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p16["layers"])
+    cfg = dataclasses.replace(get_config(p16["arch"]), n_layers=p16["layers"])
     dev = mesh.device
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4948,13 +4974,13 @@ def mesh_serve_rank(mesh, p16):
     init_s = time.perf_counter() - t0
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
     torch.cuda.reset_peak_memory_stats()
-    prompts = mesh_prompts(cfg)
+    prompts = mesh_prompts(cfg, p16)
     runs = []
     for run in range(2):
-        eng = ServeEngine(cfg, model, EngineConfig(max_batch=MESH_BATCH, s_max=MESH_S_MAX),
+        eng = ServeEngine(cfg, model, EngineConfig(max_batch=p16["batch"], s_max=p16["s_max"]),
                           device=dev, mesh=mesh)
         for rid, prompt in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=MESH_NEW))
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=p16["new"]))
         clock = CollectiveClock()
         torch.cuda.synchronize()
         spmm_cuda.launches = 0
@@ -4978,25 +5004,28 @@ def mesh_serve_rank(mesh, p16):
         del eng
     peak = torch.cuda.max_memory_allocated()
     # the one-card check's mesh side
-    b, s, s_max = MESH_CHECK
-    prompt, nxt = mesh_check_inputs(cfg, dev)
+    b, s, s_max = p16["check"]
+    prompt, nxt = mesh_check_inputs(cfg, dev, p16)
     pstep, info = build_prefill_step(cfg, mesh, s_max, b)
     dstep, _ = build_decode_step(cfg, mesh, b, s_max)
     spmm_cuda.launches = 0
-    logits, cache = pstep(model, prompt)
+    with CollectiveClock() as prefill_clock:
+        logits, cache = pstep(model, prompt)
     torch.cuda.synchronize()
     check_launches = [spmm_cuda.launches]
     # numpy crosses the result queue by value (a CPU tensor would be shared by
     # a handle the exiting rank takes with it); bf16 values are exact in f32
-    cache_host = {k: v.float().cpu().numpy() for k, v in cache.items()}
+    cache_host = {k: v.float().cpu().numpy().copy() for k, v in cache.items()}
     spmm_cuda.launches = 0
-    dlogits, _ = dstep(model, cache, nxt, s)
+    with CollectiveClock() as decode_clock:
+        dlogits, _ = dstep(model, cache, nxt, s)
     torch.cuda.synchronize()
     check_launches.append(spmm_cuda.launches)
     return {"coords": mesh.coords, "init_s": init_s, "weights": weights, "peak": peak,
             "runs": runs, "check": {"prefill": logits.float().cpu().numpy(),
                                     "decode": dlogits.float().cpu().numpy(),
                                     "cache": cache_host, "launches": check_launches,
+                                    "collectives": [prefill_clock.calls, decode_clock.calls],
                                     "cache_specs": {k: tuple(v) for k, v in
                                                     info["specs"]["cache"].items()}}}
 
@@ -5025,21 +5054,21 @@ def sharded_moe(dp, tp):
     return layer
 
 
-def mesh_one_card_check(cfg, ranks):
+def mesh_one_card_check(cfg, ranks, p):
     """The mesh's check prefill and decode against one card, in bf16 within
-    MESH_BF16_TOL: the prefill's logits against the one-card model run with
-    ``sharded_moe`` (what "a2a" computes), and the decode's logits against
-    a one-card decode ("dense_ep", each data shard's slots routed alone)
-    from the same cache, assembled from the ranks' slices. Returns the
-    errors."""
+    ``p["tol"]``: the prefill's logits against the one-card model run with
+    ``sharded_moe`` (what "a2a" computes; a model without MoE runs as it
+    is), and the decode's logits against a one-card decode ("dense_ep",
+    each data shard's slots routed alone) from the same cache, assembled
+    from the ranks' slices. Returns the errors."""
     import torch
 
     from repro_torch.models import moe, transformer as tfm
 
     dp, tp = MESH_SHAPE
-    b, s, s_max = MESH_CHECK
+    b, s, s_max = p["check"]
     model = lm_model(cfg, LM_SEED)
-    prompt, nxt = mesh_check_inputs(cfg, "cuda")
+    prompt, nxt = mesh_check_inputs(cfg, "cuda", p)
     specs = ranks[0]["check"]["cache_specs"]
     whole = {}
     for name, spec in specs.items():  # the ranks' slices put back together
@@ -5050,25 +5079,28 @@ def mesh_one_card_check(cfg, ranks):
             parts = [blocks[(d, m)] for m in range(tp)]
             rows.append(torch.cat(parts, spec.index("model")) if "model" in spec else parts[0])
         whole[name] = (torch.cat(rows, spec.index("data")) if "data" in spec else rows[0]).to(
-            "cuda", cfg.compute_dtype)
+            "cuda")
     # what the mesh does not compute: the prefill routing each data shard's
     # tokens together (logged, to show what the tolerance can see)
     inner = moe.moe_layer
-    moe.moe_layer = sharded_moe(dp, 1)
-    try:
-        routed_together, _ = tfm.prefill(cfg, model, prompt, s_max)
-    finally:
-        moe.moe_layer = inner
+    if cfg.moe:
+        moe.moe_layer = sharded_moe(dp, 1)
+        try:
+            routed_together, _ = tfm.prefill(cfg, model, prompt, s_max)
+        finally:
+            moe.moe_layer = inner
     moe.moe_layer = sharded_moe(dp, tp)
     try:
         want_p, own = tfm.prefill(cfg, model, prompt, s_max)
         errs = {"cache": max(float((whole[k].float() - own[k].float()).abs().max())
                              for k in own)}
+        whole = {k: v.to(own[k].dtype) for k, v in whole.items()}  # the SSM state stays f32
         want_d, _ = tfm.decode_step(cfg, model, whole, nxt, s)  # writes position s of whole
     finally:
         moe.moe_layer = inner
-    got0 = torch.as_tensor(ranks[0]["check"]["prefill"]).cuda()
-    errs["prefill_routed_together"] = float((got0 - routed_together.float()).abs().max())
+    if cfg.moe:
+        got0 = torch.as_tensor(ranks[0]["check"]["prefill"]).cuda()
+        errs["prefill_routed_together"] = float((got0 - routed_together.float()).abs().max())
     errs["logit_std"] = float(want_p.float().std())
     for key, want in (("prefill", want_p), ("decode", want_d)):
         diff = (torch.as_tensor(ranks[0]["check"][key]).cuda() - want.float()).abs()
@@ -5077,22 +5109,24 @@ def mesh_one_card_check(cfg, ranks):
             got = torch.as_tensor(r["check"][key]).cuda()
             err = float((got - want.float()).abs().max())
             errs[key] = max(errs.get(key, 0.0), err)
-            if not torch.allclose(got, want.float(), **MESH_BF16_TOL):
-                raise AssertionError(f"16 {key}: rank {r['coords']} differs from one card, max "
-                                     f"abs err {err} (tolerance {MESH_BF16_TOL})")
+            if not torch.allclose(got, want.float(), **p["tol"]):
+                raise AssertionError(f"{p['tag']} {key}: rank {r['coords']} differs from one "
+                                     f"card, max abs err {err} (tolerance {p['tol']})")
     del model, own, whole
     torch.cuda.empty_cache()
     return errs
 
 
-def mesh_phase(backend):
-    """Phase 16: ``mesh_serve_rank`` on a 2 x 2 mesh over ``backend`` (gloo:
-    the four ranks share this card; nccl: one rank per card). Checks that
-    both runs and all ranks give the same tokens (MESH_NEW in-range tokens
-    a request), that every rank counted 2 SpMM launches a MoE layer a
-    model call in each run (prefills + ticks) and in the check, then the
-    one-card check. Logs each rank's init, peak memory, decode-only tick
-    times and the share of run 2 spent inside collectives. Returns the
+def mesh_phase(backend, p=None):
+    """Phase 16 (``p`` P16[backend]; phase 18's serving with its own settings):
+    ``mesh_serve_rank`` on a 2 x 2 mesh over ``backend`` (gloo: the four
+    ranks share this card; nccl: one rank per card). Checks that both runs
+    and all ranks give the same tokens (``p["new"]`` in-range tokens a
+    request), that every rank counted 2 SpMM launches a MoE layer a model
+    call in each run (prefills + ticks) and in the check (none without
+    MoE), then the one-card check. Logs each rank's init, peak memory,
+    decode-only tick times, the share of run 2 spent inside collectives
+    and the collectives of one prefill and one decode call. Returns the
     phase's record."""
     import dataclasses
 
@@ -5102,60 +5136,65 @@ def mesh_phase(backend):
     from repro_torch.launch import spawn
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(OLMOE), n_layers=MESH_LAYERS)
+    p = p or P16[backend]
+    tag = p["tag"]
+    cfg = dataclasses.replace(get_config(p["arch"]), n_layers=p["layers"])
+    per_call = 2 * cfg.n_layers if cfg.moe else 0  # SpMM launches a model call
     workdir = Path(__file__).resolve().parent / "build"
     workdir.mkdir(exist_ok=True)
     ranks = spawn.run_mesh(mesh_serve_rank, MESH_SHAPE, backend=backend, device="cuda",
-                           args=({"layers": MESH_LAYERS},), timeout_s=MESH_TIMEOUT_S,
-                           workdir=workdir)
+                           args=(p,), timeout_s=MESH_TIMEOUT_S, workdir=workdir)
     spawn_s = time.perf_counter() - t_phase
     tokens = ranks[0]["runs"][0]["tokens"]
-    if sorted(tokens) != list(range(MESH_REQUESTS)) or any(
-            len(v) != MESH_NEW or not all(0 <= x < cfg.vocab for x in v) for v in tokens.values()):
-        raise AssertionError(f"16: every request must get {MESH_NEW} in-range tokens: {tokens}")
+    if sorted(tokens) != list(range(p["requests"])) or any(
+            len(v) != p["new"] or not all(0 <= x < cfg.vocab for x in v) for v in tokens.values()):
+        raise AssertionError(f"{tag}: every request must get {p['new']} in-range tokens: {tokens}")
     launches = {}
     for r in ranks:
         for i, run in enumerate(r["runs"]):
             if run["tokens"] != tokens:
-                raise AssertionError(f"16: rank {r['coords']} run {i + 1} gave other tokens")
-            want = 2 * cfg.n_layers * (run["prefills"] + run["ticks"])
+                raise AssertionError(f"{tag}: rank {r['coords']} run {i + 1} gave other tokens")
+            want = per_call * (run["prefills"] + run["ticks"])
             if run["launches"] != want:
-                raise AssertionError(f"16: rank {r['coords']} run {i + 1}: {run['launches']} SpMM "
-                                     f"launches, want 2 x {cfg.n_layers} x ({run['prefills']} "
-                                     f"prefills + {run['ticks']} ticks) = {want}")
-        if r["check"]["launches"] != [2 * cfg.n_layers] * 2:
-            raise AssertionError(f"16: rank {r['coords']} check launches "
-                                 f"{r['check']['launches']}, want 2 x {cfg.n_layers} a call")
+                raise AssertionError(f"{tag}: rank {r['coords']} run {i + 1}: {run['launches']} "
+                                     f"SpMM launches, want {per_call} a model call x "
+                                     f"({run['prefills']} prefills + {run['ticks']} ticks) = "
+                                     f"{want}")
+        if r["check"]["launches"] != [per_call] * 2:
+            raise AssertionError(f"{tag}: rank {r['coords']} check launches "
+                                 f"{r['check']['launches']}, want {per_call} a call")
         launches[str(tuple(r["coords"].values()))] = [run["launches"] for run in r["runs"]] + \
             r["check"]["launches"]
     for r in ranks:
         run1, run2 = r["runs"]
-        log(f"16 rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, weights "
+        log(f"{tag} rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, weights "
             f"{r['weights'] / 2**30:.3f} GiB, peak {r['peak'] / 2**30:.3f} GiB; run 1 "
             f"{run1['wall']:.3f} s, {run1['ticks']} ticks, decode-only tick median "
             f"{np.median(run1['tick_ms']):.3f} ms (mean {np.mean(run1['tick_ms']):.3f}); run 2 "
             f"{run2['wall']:.3f} s, tick median {np.median(run2['tick_ms']):.3f} ms, "
             f"{run2['collectives']} collectives {run2['collective_s']:.3f} s = "
-            f"{100 * run2['collective_s'] / run2['wall']:.2f} % of the run; SpMM launches "
+            f"{100 * run2['collective_s'] / run2['wall']:.2f} % of the run; collectives in one "
+            f"prefill call {r['check']['collectives'][0]}, in one decode call "
+            f"{r['check']['collectives'][1]}; SpMM launches "
             f"{launches[str(tuple(r['coords'].values()))]}")
     t0 = time.perf_counter()
-    errs = mesh_one_card_check(cfg, ranks)
-    log(f"16 one-card check: prefill max abs err {errs['prefill']:.4g} (99.9th percentile "
+    errs = mesh_one_card_check(cfg, ranks, p)
+    log(f"{tag} one-card check: prefill max abs err {errs['prefill']:.4g} (99.9th percentile "
         f"{errs['prefill_p99.9']:.4g}), decode from the same cache {errs['decode']:.4g} "
         f"({errs['decode_p99.9']:.4g}), the one-card prefill's cache against the mesh's "
-        f"{errs['cache']:.4g}, logits' std {errs['logit_std']:.4g}; tolerance {MESH_BF16_TOL}; "
-        f"against a one-card prefill routing each data shard's tokens together (not what "
-        f"the mesh computes) {errs['prefill_routed_together']:.4g}; "
-        f"{time.perf_counter() - t0:.1f} s")
-    log(f"16 {OLMOE} ({cfg.n_layers} layers, bf16) on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
-        f"(data x model) mesh over {backend}: {MESH_REQUESTS} requests x {MESH_NEW} tokens, "
+        f"{errs['cache']:.4g}, logits' std {errs['logit_std']:.4g}; tolerance {p['tol']}"
+        + (f"; against a one-card prefill routing each data shard's tokens together (not what "
+           f"the mesh computes) {errs['prefill_routed_together']:.4g}" if cfg.moe else "")
+        + f"; {time.perf_counter() - t0:.1f} s")
+    log(f"{tag} {p['arch']} ({cfg.n_layers} layers, bf16) on a {MESH_SHAPE[0]}x{MESH_SHAPE[1]} "
+        f"(data x model) mesh over {backend}: {p['requests']} requests x {p['new']} tokens, "
         f"both runs and all ranks the same tokens; spawn {spawn_s:.1f} s; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     return {"backend": backend, "launches_per_rank": launches, "errs": errs,
             "peak_gib": {str(tuple(r["coords"].values())): r["peak"] / 2**30 for r in ranks},
             "tick_ms_median": {str(tuple(r["coords"].values())):
-                               float(np.median(r["runs"][0]["tick_ms"])) for r in ranks}}
-
+                               float(np.median(r["runs"][0]["tick_ms"])) for r in ranks},
+            "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -5163,8 +5202,8 @@ def mesh_phase(backend):
 # ---------------------------------------------------------------------------
 TRAIN_MESH_SHAPE = (2, 2)  # (data, model): 4 ranks
 # OLMoE-1B-7B at its published width: layers of 16, global batch x sequence
-TRAIN_MESH = {"gloo": dict(layers=2, batch=4, seq=512),
-              "nccl": dict(layers=4, batch=8, seq=2048)}
+TRAIN_MESH = {"gloo": dict(tag="17", arch=OLMOE, layers=2, batch=4, seq=512),
+              "nccl": dict(tag="17", arch=OLMOE, layers=4, batch=8, seq=2048)}
 TRAIN_MESH_STEPS = 3
 TRAIN_MESH_OPT = OLMOE_TRAIN_OPT
 # The checked step against one card (PERF.md §6, stated before the run
@@ -5176,9 +5215,11 @@ TRAIN_MESH_OPT = OLMOE_TRAIN_OPT
 # gradient norm and every parameter's gradient norm (the data-reduced
 # gradient, whose scale AdamW's first step does not show) within these
 # rtols. AdamW's first step moves an entry by lr_1·g/(|g| + eps), the sign
-# of g: at most TRAIN_MESH_FLIP_SHARE of a tensor's entries may differ by
-# more than TRAIN_MESH_FLIP_ATOL (a gradient entry near 0 whose sign the
-# sums' order flips).
+# of g: at most TRAIN_MESH_FLIP_SHARE of a tensor's entries, or one entry,
+# may differ by more than TRAIN_MESH_FLIP_ATOL (a gradient entry near 0
+# whose sign the sums' order flips; one entry is 6.25 % of a Mamba2 rank's
+# 16 dt_bias entries, where Mamba2-370M at 48 layers moved one by
+# 2.195e-05, PERF.md §6).
 TRAIN_MESH_LOSS_RTOL = 1e-4
 TRAIN_MESH_NORM_RTOL = 1e-3
 TRAIN_MESH_LEAF_RTOL = 1e-3
@@ -5206,7 +5247,7 @@ def stacked_shapes(tree):
             out[name] = tuple(t.shape)
     for kind, shapes in layers.items():
         if len(set(shapes)) != 1:
-            raise AssertionError(f"17: {kind} holds layers of shapes {shapes}")
+            raise AssertionError(f"ZeRO state: {kind} holds layers of shapes {shapes}")
         out[kind] = (len(shapes),) + shapes[0]
     return out
 
@@ -5265,7 +5306,7 @@ def mesh_train_rank(mesh, p17):
     from repro_torch.models.common import leaf_spec, shard_tensor
 
     entered = time.time()
-    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p17["layers"])
+    cfg = dataclasses.replace(get_config(p17["arch"]), n_layers=p17["layers"])
     dev = mesh.device
     # the checked step, f32
     t0 = time.perf_counter()
@@ -5280,8 +5321,8 @@ def mesh_train_rank(mesh, p17):
     for name, p in model.named_parameters():
         want = shard_tensor(p17["ref"][name], leaf_spec(step.specs["params"], name), mesh).to(dev)
         diff = (p.detach() - want).abs()
-        check["params"][name] = (float(diff.max()),
-                                 float((diff > TRAIN_MESH_FLIP_ATOL).float().mean()))
+        over = diff > TRAIN_MESH_FLIP_ATOL
+        check["params"][name] = (float(diff.max()), float(over.float().mean()), int(over.sum()))
         del want, diff
     check["s"] = time.perf_counter() - t0
     del model, opt, step, m
@@ -5364,15 +5405,17 @@ def mesh_train_reference(cfg, p17):
             "params": params, "init_s": init_s, "step_s": step_s, "peak": peak}
 
 
-def mesh_train_phase(backend):
-    """Phase 17: ``mesh_train_rank`` on a 2 x 2 mesh over ``backend`` (gloo:
-    the four ranks share this card; nccl: one rank per card). Checks that
-    every rank got the same finite loss each step, counted 6 SpMM launches
-    a MoE layer a step (forward, remat recompute, dB: 2 each), holds ZeRO
-    state of the shapes ``shardings_for``'s specs give, and that the
-    checked step agrees with one card's (see TRAIN_MESH_*). Logs each
-    rank's init, peak memory, step times and the last step's share inside
-    collectives. Returns the phase's record."""
+def mesh_train_phase(backend, p17=None):
+    """Phase 17 (``p17`` TRAIN_MESH[backend]; phase 18's training with its
+    own settings): ``mesh_train_rank`` on a 2 x 2 mesh over ``backend``
+    (gloo: the four ranks share this card; nccl: one rank per card).
+    Checks that every rank got the same finite loss each step, counted 6
+    SpMM launches a MoE layer a step (forward, remat recompute, dB: 2
+    each; none without MoE), holds ZeRO state of the shapes
+    ``shardings_for``'s specs give, and that the checked step agrees with
+    one card's (see TRAIN_MESH_*). Logs each rank's init, peak memory,
+    step times and the last step's collectives and share inside them.
+    Returns the phase's record."""
     import dataclasses
 
     import torch
@@ -5381,14 +5424,16 @@ def mesh_train_phase(backend):
     from repro_torch.launch import spawn
 
     t_phase = time.perf_counter()
-    p17 = TRAIN_MESH[backend]
-    cfg = dataclasses.replace(get_config(OLMOE), n_layers=p17["layers"])
+    p17 = p17 or TRAIN_MESH[backend]
+    tag17 = p17["tag"]
+    cfg = dataclasses.replace(get_config(p17["arch"]), n_layers=p17["layers"])
     ref = mesh_train_reference(cfg, p17)
-    log(f"17 one card, f32: {cfg.n_layers} layers, batch {p17['batch']} x {p17['seq']}, init "
+    log(f"{tag17} one card, f32: {cfg.n_layers} layers, batch {p17['batch']} x {p17['seq']}, init "
         f"{ref['init_s']:.2f} s, one step {ref['step_s']:.2f} s, peak "
         f"{ref['peak'] / 2**30:.3f} GiB; loss {ref['loss']:.6f}, grad norm "
-        f"{ref['grad_norm']:.6f}; at init routing all tokens together (not what the mesh "
-        f"computes) {ref['together']:.6f}")
+        f"{ref['grad_norm']:.6f}"
+        + (f"; at init routing all tokens together (not what the mesh computes) "
+           f"{ref['together']:.6f}" if cfg.moe else ""))
     workdir = Path(__file__).resolve().parent / "build"
     workdir.mkdir(exist_ok=True)
     t0, spawned = time.perf_counter(), time.time()
@@ -5398,7 +5443,7 @@ def mesh_train_phase(backend):
     spawn_s = time.perf_counter() - t0
     del ref["params"]
     torch.cuda.empty_cache()
-    want = 6 * cfg.n_layers
+    want = 6 * cfg.n_layers if cfg.moe else 0
     tag = lambda r: str(tuple(r["coords"].values()))  # noqa: E731
     launches = {tag(r): [s["launches"] for s in r["steps"]] for r in ranks}
 
@@ -5406,14 +5451,15 @@ def mesh_train_phase(backend):
         return {n: abs(g - ref["leaf_norms"][n]) / max(ref["leaf_norms"][n], 1e-30)
                 for n, g in r["check"]["leaf_norms"].items()}
 
-    worst = {"max": max(mx for r in ranks for mx, _ in r["check"]["params"].values()),
-             "share": max(sh for r in ranks for _, sh in r["check"]["params"].values()),
+    worst = {"max": max(mx for r in ranks for mx, _, _ in r["check"]["params"].values()),
+             "share": max(sh for r in ranks for _, sh, _ in r["check"]["params"].values()),
+             "count": max(c for r in ranks for _, _, c in r["check"]["params"].values()),
              "leaf_norm_rel": max(v for r in ranks for v in leaf_rel(r).values())}
     worst_leaf = max(leaf_rel(ranks[0]).items(), key=lambda kv: kv[1])
     for r in ranks:
         s = r["steps"]
         last = s[-1]
-        log(f"17 rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, params "
+        log(f"{tag17} rank {r['coords']} ({backend}): init {r['init_s']:.2f} s, params "
             f"{r['held']['params'] / 2**30:.3f} GiB, ZeRO moments {r['held']['opt'] / 2**30:.3f} "
             f"GiB, peak {r['peak'] / 2**30:.3f} GiB; step s {[round(x['s'], 3) for x in s]} "
             f"(host clock, ending in the loss's read); last step under the collective clock: "
@@ -5421,12 +5467,12 @@ def mesh_train_phase(backend):
             f"{100 * last['collective_s'] / last['s']:.2f} % of {last['s']:.3f} s; SpMM "
             f"launches {launches[tag(r)]} (checked step {r['check']['launches']}); checked step "
             f"loss {r['check']['loss']:.6f}, grad norm {r['check']['grad_norm']:.6f}, parameters "
-            f"max abs diff {max(mx for mx, _ in r['check']['params'].values()):.4g}, share over "
-            f"{TRAIN_MESH_FLIP_ATOL} {max(sh for _, sh in r['check']['params'].values()):.4g}; "
+            f"max abs diff {max(mx for mx, _, _ in r['check']['params'].values()):.4g}, share over "
+            f"{TRAIN_MESH_FLIP_ATOL} {max(sh for _, sh, _ in r['check']['params'].values()):.4g}; "
             f"entered {r['entered'] - spawned:.1f} s after the spawn, checked step (init, step, "
             f"compare) {r['check']['s']:.1f} s, left {r['left'] - spawned:.1f} s after it")
     check = ranks[0]["check"]
-    log(f"17 one-card check of the f32 step: loss {check['loss']:.6f} vs {ref['loss']:.6f} "
+    log(f"{tag17} one-card check of the f32 step: loss {check['loss']:.6f} vs {ref['loss']:.6f} "
         f"(rel {abs(check['loss'] - ref['loss']) / abs(ref['loss']):.3g}, rtol "
         f"{TRAIN_MESH_LOSS_RTOL}), grad norm {check['grad_norm']:.6f} vs {ref['grad_norm']:.6f} "
         f"(rel {abs(check['grad_norm'] - ref['grad_norm']) / ref['grad_norm']:.3g}, rtol "
@@ -5435,45 +5481,48 @@ def mesh_train_phase(backend):
         f"{worst_leaf[0]}: {check['leaf_norms'][worst_leaf[0]]:.6g} vs "
         f"{ref['leaf_norms'][worst_leaf[0]]:.6g}, of {len(ref['leaf_norms'])} parameters); "
         f"parameters: max abs diff {worst['max']:.4g}, at most {100 * worst['share']:.4f} % of "
-        f"a tensor's entries over {TRAIN_MESH_FLIP_ATOL} (bound {100 * TRAIN_MESH_FLIP_SHARE} "
-        f"%); at init the one card routing all tokens together gives loss "
-        f"{ref['together']:.6f}")
+        f"a tensor's entries over {TRAIN_MESH_FLIP_ATOL}, at most {worst['count']} in one tensor "
+        f"(bound {100 * TRAIN_MESH_FLIP_SHARE} % or one entry)" + (f"; at init the one card routing all tokens together gives loss "
+                 f"{ref['together']:.6f}" if cfg.moe else ""))
     losses = [s["loss"] for s in ranks[0]["steps"]]
     for r in ranks:
         at = r["coords"]
         got = [s["loss"] for s in r["steps"]]
         if got != losses or not all(np.isfinite(got)):
-            raise AssertionError(f"17: rank {at} losses {got}, rank 0's {losses}")
+            raise AssertionError(f"{tag17}: rank {at} losses {got}, rank 0's {losses}")
         if any(n != want for n in launches[tag(r)] + [r["check"]["launches"]]):
-            raise AssertionError(f"17: rank {at} SpMM launches {launches[tag(r)]}, checked step "
+            raise AssertionError(f"{tag17}: rank {at} SpMM launches {launches[tag(r)]}, checked step "
                                  f"{r['check']['launches']}; want {want} a step = "
-                                 f"{cfg.n_layers} layers x (2 forward + 2 recompute + 2 dB)")
+                                 f"{cfg.n_layers} MoE layers x (2 forward + 2 recompute + 2 "
+                                 f"dB)")
         zero = r["zero"]
         if zero["held"] != zero["want"]:
-            raise AssertionError(f"17: rank {at} ZeRO state {zero['held']}, specs give "
+            raise AssertionError(f"{tag17}: rank {at} ZeRO state {zero['held']}, specs give "
                                  f"{zero['want']}")
         if not (np.isclose(r["check"]["loss"], ref["loss"], rtol=TRAIN_MESH_LOSS_RTOL, atol=0)
                 and np.isclose(r["check"]["grad_norm"], ref["grad_norm"],
                                rtol=TRAIN_MESH_NORM_RTOL, atol=0)):
-            raise AssertionError(f"17: rank {at} checked step loss {r['check']['loss']}, grad "
+            raise AssertionError(f"{tag17}: rank {at} checked step loss {r['check']['loss']}, grad "
                                  f"norm {r['check']['grad_norm']}; one card {ref['loss']}, "
                                  f"{ref['grad_norm']}")
         if sorted(r["check"]["leaf_norms"]) != sorted(ref["leaf_norms"]):
-            raise AssertionError(f"17: rank {at} gradient norms of "
+            raise AssertionError(f"{tag17}: rank {at} gradient norms of "
                                  f"{sorted(r['check']['leaf_norms'])}")
         for name, rel in leaf_rel(r).items():
             if not rel <= TRAIN_MESH_LEAF_RTOL:
-                raise AssertionError(f"17: rank {at} {name}'s gradient norm "
+                raise AssertionError(f"{tag17}: rank {at} {name}'s gradient norm "
                                      f"{r['check']['leaf_norms'][name]}, one card "
                                      f"{ref['leaf_norms'][name]} (rel {rel}, rtol "
                                      f"{TRAIN_MESH_LEAF_RTOL})")
-        for name, (mx, share) in r["check"]["params"].items():
-            if share > TRAIN_MESH_FLIP_SHARE:
-                raise AssertionError(f"17: rank {at} {name} after the checked step: "
-                                     f"{100 * share:.3f} % of entries over "
+        for name, (mx, share, count) in r["check"]["params"].items():
+            if count > 1 and share > TRAIN_MESH_FLIP_SHARE:
+                raise AssertionError(f"{tag17}: rank {at} {name} after the checked step: "
+                                     f"{count} entries ({100 * share:.3f} %) over "
                                      f"{TRAIN_MESH_FLIP_ATOL} (bound "
-                                     f"{100 * TRAIN_MESH_FLIP_SHARE} %; max abs diff {mx})")
-    log(f"17 {OLMOE} ({cfg.n_layers} layers, f32 masters, bf16, remat, ZeRO-1 AdamW) on a "
+                                     f"{100 * TRAIN_MESH_FLIP_SHARE} % or one entry; max abs "
+                                     f"diff {mx})")
+    log(f"{tag17} {p17['arch']} ({cfg.n_layers} layers, f32 masters, bf16, remat, ZeRO-1 AdamW) "
+        f"on a "
         f"{TRAIN_MESH_SHAPE[0]}x{TRAIN_MESH_SHAPE[1]} (data x model) mesh over {backend}: "
         f"{TRAIN_MESH_STEPS} steps, losses {[round(x, 6) for x in losses]} on every rank; "
         f"spawn {spawn_s:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
@@ -5481,7 +5530,56 @@ def mesh_train_phase(backend):
             "check": {"loss": [check["loss"], ref["loss"]],
                       "grad_norm": [check["grad_norm"], ref["grad_norm"]], **worst},
             "peak_gib": {tag(r): r["peak"] / 2**30 for r in ranks},
-            "step_s": {tag(r): [x["s"] for x in r["steps"]] for r in ranks}}
+            "step_s": {tag(r): [x["s"] for x in r["steps"]] for r in ranks},
+            "seconds": time.perf_counter() - t_phase}
+
+# ---------------------------------------------------------------------------
+# phase 18: the Mamba2 and Zamba2 families on a ("data", "model") process mesh
+# ---------------------------------------------------------------------------
+ZAMBA2, MAMBA2 = "zamba2-2.7b", "mamba2-370m"
+# 18a: Zamba2-2.7B at its published width (arXiv:2411.15242; 54 layers, the
+# shared block after every 6th), bf16, seeded random weights, served twice
+# through the engine on the mesh, then the one-card check: the mesh's
+# prefill and decode against one card's from the same cache. In bf16 over
+# 54 layers, with logits of std ~0.88, the largest differences seen (H100
+# 80GB HBM3, 700 W) were 0.05811 (prefill) and 0.03125 (decode):
+# ~4x the larger
+SSM_BF16_TOL = dict(rtol=0.0, atol=0.25)
+SSM_SERVE = {backend: dict(tag="18a", arch=ZAMBA2, layers=54, requests=4, prompt=(64, 256),
+                           new=8, batch=4, s_max=512, check=(4, 64, 128), seed=LM_SEED + 18,
+                           tol=SSM_BF16_TOL)
+             for backend in ("gloo", "nccl")}
+# 18b: Mamba2-370M at its published width (arXiv:2405.21060; 48 layers), f32
+# masters, bf16 compute, remat, ZeRO-1 AdamW, global batch 4 x 512 from the
+# port's stream, TRAIN_MESH_STEPS steps after the f32 step checked against
+# one card (phase 17's checks)
+# (over gloo 24 of the 48 layers: at 48 the part took ~60 s on an H100,
+# ~0.9 s a layer, and a part is held to 45 s; all 48 over NCCL)
+SSM_TRAIN = {"gloo": dict(tag="18b", arch=MAMBA2, layers=24, batch=4, seq=512),
+             "nccl": dict(tag="18b", arch=MAMBA2, layers=48, batch=4, seq=512)}
+
+
+def ssm_mesh_phase(backend):
+    """Phase 18: the ssm and hybrid families tensor parallel on a 2 x 2
+    mesh over ``backend`` (gloo: the four ranks share this card; nccl: one
+    rank per card): 18a serves Zamba2-2.7B (``mesh_phase`` with
+    SSM_SERVE's settings), 18b trains Mamba2-370M (``mesh_train_phase``
+    with SSM_TRAIN's). No kernel of the port launches on this path: the
+    SSD scan is plain PyTorch, as the JAX package's is jnp, and the counts
+    of SpMM launches must stay 0. Returns both records."""
+    import torch
+
+    t0 = time.perf_counter()
+    card = card_lines(1)[0]
+    serve = mesh_phase(backend, SSM_SERVE[backend])
+    torch.cuda.empty_cache()
+    train = mesh_train_phase(backend, SSM_TRAIN[backend])
+    torch.cuda.empty_cache()
+    log(f"18 on {card} over {backend}: 18a {ZAMBA2} ({SSM_SERVE[backend]['layers']} layers) "
+        f"served in {serve['seconds']:.1f} s, 18b {MAMBA2} ({SSM_TRAIN[backend]['layers']} "
+        f"layers) trained in {train['seconds']:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+    return {"serve": serve, "train": train}
+
 
 def main() -> int:
     import argparse
@@ -5540,6 +5638,7 @@ def main() -> int:
         tuned_phase_four_cards(t4, N_FULL)
         mesh_phase("nccl")  # 16: one rank per card
         mesh_train_phase("nccl")  # 17: one rank per card
+        ssm_mesh_phase("nccl")  # 18: one rank per card
         log(f"chip_smoke --chips 4: {time.perf_counter() - started:.1f} s")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5709,6 +5808,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 17. training on a 2x2 (data, model) mesh: four ranks on this card over gloo
     p17 = mesh_train_phase("gloo")
+    torch.cuda.empty_cache()
+    # 18. the ssm and hybrid families on a 2x2 (data, model) mesh: four ranks
+    # on this card over gloo
+    ssm_mesh_phase("gloo")
 
     seg_err, seg_ms, seg_plain, seg_lib, seg_bytes, seg_ops = seg
     seg_bound, seg_by = bound_ms(seg_bytes, seg_ops)

@@ -40,8 +40,10 @@ attention and the MLP are Megatron's, the MoE expert parallel ("a2a" at
 prefill, "dense_ep" at decode), and the residual stream stays whole on
 every rank: the JAX package's ``_act_constraint`` and
 ``_gather_for_attn`` act only under ``act_sharding="seq"``, which no
-config sets, and are not ported. The ssm and hybrid families run on a
-mesh only with a "model" axis of 1 (ROADMAP).
+config sets, and are not ported. The Mamba2 blocks of the ssm and hybrid
+families are tensor parallel as ``ssm`` describes, and the hybrid's
+shared block is Megatron's attention and MLP, its KV cache split as an
+attention layer's.
 
 Training on a mesh (``forward``/``lm_loss(..., mesh=)``, or
 ``lm_loss_shard`` on this rank's share of the batch): the same paths,
@@ -373,14 +375,20 @@ def _attn_layer_fwd(cfg: ModelConfig, lp, h, positions, window,
     return h + ff, aux, new_cache
 
 
-def _shared_block_fwd(cfg: ModelConfig, sp, h, positions, kv_cache=None, cache_index=None):
+def _shared_block_fwd(cfg: ModelConfig, sp, h, positions, kv_cache=None, cache_index=None,
+                      mesh=None, tp_specs=None, seq_sharded=False):
+    """The hybrid's shared block. On a mesh ``sp`` holds this rank's slices
+    and ``tp_specs`` the block's ``{"attn": ..., "mlp": ...}`` specs."""
+    tp_specs = tp_specs or {}
     att, _ = attn_mod.attend(
         sp["attn"], rms_norm(h, sp["ln1"]), positions,
         rope_theta=cfg.rope_theta, query_scale=cfg.query_scale,
         kv_cache=kv_cache, cache_index=cache_index,
+        mesh=mesh, specs=tp_specs.get("attn"), seq_sharded=seq_sharded,
     )
     h = h + att
-    return h + mlp_mod.mlp(sp["mlp"], rms_norm(h, sp["ln2"]), cfg.act)
+    return h + mlp_mod.mlp(sp["mlp"], rms_norm(h, sp["ln2"]), cfg.act, mesh,
+                           tp_specs.get("mlp"))
 
 
 def _embed(cfg: ModelConfig, params, inputs: Tensor, mesh=None) -> Tensor:
@@ -474,6 +482,8 @@ def _hidden(cfg: ModelConfig, params, inputs: Tensor, shard: Optional["_Shard"] 
     on this rank's share of the batch with ``shard``."""
     mesh = shard.mesh if shard is not None else None
     tp_kw = dict(mesh=mesh, tp_specs=shard.layer) if shard is not None else {}
+    shared_kw = dict(mesh=mesh, tp_specs=shard.shared) if shard is not None else {}
+    ssm_kw = dict(mesh=mesh, specs=shard.layer["mamba"]) if shard is not None else {}
     h = _embed(cfg, params, inputs, mesh)
     B, S = h.shape[0], h.shape[1]
     positions = torch.arange(S, device=h.device).expand(B, S)
@@ -491,7 +501,7 @@ def _hidden(cfg: ModelConfig, params, inputs: Tensor, shard: Optional["_Shard"] 
     elif cfg.family == "ssm":
         def body(h, lp):
             return h + ssm_mod.mamba2_block(_at_use(cfg, lp["mamba"]), rms_norm(h, lp["ln"]),
-                                            cfg.ssm)
+                                            cfg.ssm, **ssm_kw)
 
         for lp in layers:
             h = _remat(cfg, body, h, lp)
@@ -500,8 +510,9 @@ def _hidden(cfg: ModelConfig, params, inputs: Tensor, shard: Optional["_Shard"] 
             for i in group:
                 lp = layers[i]
                 h = h + ssm_mod.mamba2_block(_at_use(cfg, lp["mamba"]), rms_norm(h, lp["ln"]),
-                                             cfg.ssm)
-            return _shared_block_fwd(cfg, _at_use(cfg, params["shared_block"]), h, positions)
+                                             cfg.ssm, **ssm_kw)
+            return _shared_block_fwd(cfg, _at_use(cfg, params["shared_block"]), h, positions,
+                                     **shared_kw)
 
         for group in _mamba_groups(cfg):
             h = _remat(cfg, group_body, h, group)
@@ -634,19 +645,21 @@ def _local_shape(shape, spec, mesh):
 
 class _Shard:
     """What a model call on a mesh needs: the mesh, the layer specs of
-    tensor parallelism, whether the batch is split over the data axes,
-    and whether the cache's sequence is split over "model"."""
+    tensor parallelism (``layer``: an attention layer's, or a Mamba2
+    block's under "mamba"; ``shared``: the hybrid's shared block's),
+    whether the batch is split over the data axes, and whether the
+    cache's sequence is split over "model"."""
 
     def __init__(self, cfg: ModelConfig, mesh, batch: int, s_max: Optional[int] = None,
                  train: bool = False):
         self.mesh = mesh
         tp = _tp(mesh)
-        if tp > 1 and cfg.family != "attn":
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the {cfg.family} family runs on a mesh only with a model axis "
-                f"of 1 (tensor-parallel ssm/hybrid execution is queued in ROADMAP.md)")
         self.layer = {"attn": attn_mod.attention_specs(cfg.eff_heads, cfg.kv_heads, tp),
-                      "mlp": mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp)}
+                      "mlp": mlp_mod.mlp_specs(cfg.act, cfg.d_ff, tp),
+                      "mamba": ssm_mod.mamba2_specs(cfg.ssm, cfg.d_model, tp) if cfg.ssm
+                      else None}
+        self.shared = {"attn": attn_mod.attention_specs(cfg.n_heads, cfg.kv_heads, tp),
+                       "mlp": self.layer["mlp"]}
         self.batch = batch_shard(mesh, batch)
         if train:  # no cache; the batch must split, as the reference's in_shardings ask
             if batch_axes(mesh) and not self.batch:
@@ -674,16 +687,19 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
     layers = params["layers"]
     mesh = shard.mesh if shard is not None else None
     tp_kw = dict(mesh=mesh, tp_specs=shard.layer, seq_sharded=shard.seq_sharded) if shard else {}
+    shared_kw = dict(mesh=mesh, tp_specs=shard.shared, seq_sharded=shard.seq_sharded) \
+        if shard else {}
+    ssm_kw = dict(mesh=mesh, specs=shard.layer["mamba"]) if shard else {}
 
     def mamba(i, h):
         lp = layers[i]
         x, state = rms_norm(h, lp["ln"]), (cache["conv"][i], cache["ssm"][i])
         mp = _at_use(cfg, lp["mamba"])
         if decode:
-            out, (conv, st) = ssm_mod.mamba2_decode_step(mp, x, cfg.ssm, state)
+            out, (conv, st) = ssm_mod.mamba2_decode_step(mp, x, cfg.ssm, state, **ssm_kw)
         else:
             out, (conv, st) = ssm_mod.mamba2_block(mp, x, cfg.ssm, state=state,
-                                                   return_state=True)
+                                                   return_state=True, **ssm_kw)
         cache["conv"][i] = conv
         cache["ssm"][i] = st
         return h + out
@@ -703,7 +719,7 @@ def _run_cached(cfg: ModelConfig, params, cache, h, positions, cache_index, deco
                 h = mamba(i, h)
             h = _shared_block_fwd(cfg, _at_use(cfg, params["shared_block"]), h, positions,
                                   kv_cache=(cache["k"][g], cache["v"][g]),
-                                  cache_index=cache_index)
+                                  cache_index=cache_index, **shared_kw)
     return h
 
 

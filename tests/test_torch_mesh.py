@@ -137,10 +137,3 @@ def test_one_point_mesh_equals_no_mesh(arch):
         done.append([(r.rid, r.out_tokens) for r in eng.run_to_completion()])
     assert done[0] == done[1]
 
-
-def test_model_axis_above_one_refuses_the_ssm_families():
-    cfg = get_config("zamba2-2.7b", smoke=True)
-    mesh = Mesh(("data", "model"), (1, 2), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.prefill(cfg, ttfm.init_params(cfg, torch.Generator().manual_seed(0), "cpu"),
-                     torch.zeros((1, 4), dtype=torch.int32), 8, mesh=mesh)

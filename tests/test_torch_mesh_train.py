@@ -28,9 +28,9 @@ B = 4 from one numpy seed. Checks:
     within rtol 1e-5; a direction whose ±ε runs route differently on any
     rank is redrawn;
   * the JAX package's faults that shape these targets: on 1x2 its
-    starcoder2 loss equals the one-device loss while every gradient leaf
-    is 1/2 of the one-device one; its "dp" strategy cannot train olmoe,
-    and the port's raises a ValueError.
+    starcoder2, mamba2 and zamba2 losses equal the one-device losses while
+    every gradient leaf is 1/2 of the one-device one; its "dp" strategy
+    cannot train olmoe, and the port's raises a ValueError.
 
 Tolerances: losses rtol 1e-5 (f32 sums in other orders); gradients as
 ``tests/test_torch_train.py``'s ``close_model_grad`` (rtol 1e-4, atol
@@ -73,6 +73,9 @@ CASES_ON = {(2, 1): (("starcoder2-7b", 8), ("olmoe-1b-7b", 8), ("deepseek-moe-16
                      ("olmoe-1b-7b", 8), ("olmoe-1b-7b", 7))}
 F64_SHAPES = ((1, 2), (2, 2))
 ARCHS = sorted({a for a, _ in CASES})
+# fault 1 on the ssm and hybrid families: the JAX mesh gradient against its
+# one-device gradient alone (the port's side is tests/test_torch_mesh_ssm.py)
+FAULT1_ARCHS = ("starcoder2-7b", "mamba2-370m", "zamba2-2.7b")
 EPS = 1e-6
 DIRECTIONS = 3  # seeded directions tried before a check gives up on routing flips
 LOSS_RTOL = 1e-5
@@ -100,6 +103,10 @@ def _inputs():
         vocab = get_config(case[0], smoke=True).vocab
         out[_cid(case)] = (rng.integers(0, vocab, (B, case[1])).astype(np.int32),
                            rng.integers(0, vocab, (B, case[1])).astype(np.int32))
+    for arch in FAULT1_ARCHS[1:]:
+        vocab = get_config(arch, smoke=True).vocab
+        out[_cid((arch, 8))] = (rng.integers(0, vocab, (B, 8)).astype(np.int32),
+                                rng.integers(0, vocab, (B, 8)).astype(np.int32))
     return out
 
 
@@ -280,6 +287,14 @@ def _reference(inputs_path, out_path, tag):
             else:
                 loss, aux = jax.jit(loss_and_aux)(params[arch])
             res["loss"][cid], res["aux"][cid] = float(loss), float(aux)
+        if tag in ("1x1", "1x2"):  # fault 1's ssm and hybrid cases
+            for arch in FAULT1_ARCHS[1:]:
+                cid = _cid((arch, 8))
+                plain = dataclasses.replace(get_config(arch, smoke=True), remat=False)
+                x, y = inp[cid]
+                loss, g = jax.jit(jax.value_and_grad(
+                    lambda p, c=plain: tfm.lm_loss(c, p, x, y, mesh)))(params[arch])
+                res["loss"][cid], res["grad"][cid] = float(loss), np_tree(g)
         if tag == "2x2":  # "dp" on an MoE model
             cfg = get_config("olmoe-1b-7b", smoke=True)
             x, y = inp[_cid(("olmoe-1b-7b", 8))]
@@ -306,7 +321,7 @@ def runs(tmp_path_factory):
     from repro_torch.launch import spawn
 
     work = tmp_path_factory.mktemp("mesh_train")
-    params = {a: _weights(a) for a in ARCHS}
+    params = {a: _weights(a) for a in ARCHS + list(FAULT1_ARCHS[1:])}
     inp = _inputs()
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump((inp, params), f)
@@ -469,14 +484,18 @@ def test_f64_directional_derivative_of_the_mesh_loss(runs, shape, case):
 
 def test_jax_mesh_gradient_is_one_over_tp_of_its_loss(runs):
     """Fault 1 of the JAX package (ROADMAP §3.1): on 1x2 its loss is the
-    one-device loss, and every gradient leaf is half the one-device one."""
+    one-device loss, and every gradient leaf is half the one-device one,
+    on starcoder2 and on the ssm and hybrid families (mamba2's ``conv_w``,
+    ``w_bc``, ``A_log``, zamba2's shared block, the embeddings)."""
     ref, _, _ = runs
-    cid = _cid(("starcoder2-7b", 8))
-    np.testing.assert_allclose(ref["1x2"]["loss"][cid], ref["1x1"]["loss"][cid], rtol=1e-6)
-    mesh_g, one_g = _unstack(ref["1x2"]["grad"][cid]), _unstack(ref["1x1"]["grad"][cid])
-    for name in one_g:
-        _close_grad(2.0 * mesh_g[name], one_g[name], name)
-        assert np.abs(one_g[name]).max() > 0, name
+    for arch in FAULT1_ARCHS:
+        cid = _cid((arch, 8))
+        np.testing.assert_allclose(ref["1x2"]["loss"][cid], ref["1x1"]["loss"][cid], rtol=1e-6)
+        mesh_g, one_g = _unstack(ref["1x2"]["grad"][cid]), _unstack(ref["1x1"]["grad"][cid])
+        assert (arch == "zamba2-2.7b") == any(n.startswith("shared_block.") for n in one_g)
+        for name in one_g:
+            _close_grad(2.0 * mesh_g[name], one_g[name], f"{arch} {name}")
+            assert np.abs(one_g[name]).max() > 0, (arch, name)
 
 
 def test_dp_strategy_cannot_train_moe(runs):
